@@ -1,0 +1,259 @@
+"""Index construction: shared host-side pipeline + per-kind rule policies.
+
+``build_index(strings, scores, rules, spec, device=None)`` runs Alg. 1 /
+3 / 5 of the paper (array-encoded) on the host — build the dictionary
+trie, find all rule links, ask the spec's registered builder which rules
+to expand (ET side) vs keep in the link store (TT side), then materialize
+edges, the rule trie and byte accounting — and moves the result to the
+device.  The arrays are bit-identical to ``repro.api.build_index``'s.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from repro_torch.api.spec import (BuildContext, IndexSpec, get_builder,
+                                  register_builder)
+from repro_torch.core import knapsack as ks
+from repro_torch.core import trie_build as tb
+from repro_torch.core.engine.structs import EngineConfig, resolve_device
+from repro_torch.core.engine.substrate import resolve_substrate
+
+
+@dataclass
+class BuildStats:
+    kind: str
+    n_strings: int
+    n_nodes: int
+    n_syn_nodes: int
+    n_links: int
+    n_rules_expanded: int
+    build_seconds: float
+    bytes_total: int
+    bytes_dict_nodes: int
+    bytes_syn_nodes: int
+    bytes_rule_side: int
+    bytes_cache: int
+
+    @property
+    def bytes_per_string(self) -> float:
+        return self.bytes_total / max(self.n_strings, 1)
+
+
+# ---------------------------------------------------------------------------
+# kind-specific rule partitioning (the pluggable part)
+# ---------------------------------------------------------------------------
+
+
+@register_builder("plain")
+def _build_plain(ctx: BuildContext):
+    n = len(ctx.rules)
+    return np.zeros(n, bool), np.zeros(n, bool)
+
+
+@register_builder("tt")
+def _build_tt(ctx: BuildContext):
+    n = len(ctx.rules)
+    return np.zeros(n, bool), np.ones(n, bool)
+
+
+@register_builder("et")
+def _build_et(ctx: BuildContext):
+    n = len(ctx.rules)
+    return np.ones(n, bool), np.zeros(n, bool)
+
+
+@register_builder("ht")
+def _build_ht(ctx: BuildContext):
+    items = ks.analyze_rules(ctx.rules, ctx.anchors, ctx.rids)
+    s_et = int(items.w_orig.sum())  # node-count proxy for S_ET - S_TT
+    budget = int(round(ctx.spec.alpha * s_et))
+    expand_mask = ks.solve_knapsack(items, budget)
+    return expand_mask, ~expand_mask
+
+
+# ---------------------------------------------------------------------------
+# shared pipeline
+# ---------------------------------------------------------------------------
+
+
+def build_index(strings, scores, rules, spec: IndexSpec | None = None, *,
+                device=None, **spec_kwargs):
+    """Build a :class:`repro_torch.api.index.CompletionIndex` on ``device``
+    (CUDA unless the caller passes another, e.g. ``device="cpu"``).
+
+    Either pass a ready ``spec`` or IndexSpec keyword fields — not both.
+    """
+    from repro_torch.api.index import CompletionIndex
+
+    if spec is None:
+        spec = IndexSpec(**spec_kwargs)
+    elif spec_kwargs:
+        raise TypeError("pass either spec= or IndexSpec kwargs, not both")
+    spec.validate()
+    device = resolve_device(device)
+    builder = get_builder(spec.kind)
+
+    t0 = time.perf_counter()
+    rules = list(rules)
+    trie, ss, sc = tb.build_dict_trie(strings, scores)
+    anchors, rids, targets = tb.find_links(trie, rules)
+    n_rules = len(rules)
+    n_links = len(anchors)
+
+    if n_rules == 0:
+        expand_mask = np.zeros(0, dtype=bool)
+        keep_links = np.zeros(0, dtype=bool)
+    else:
+        ctx = BuildContext(spec=spec, trie=trie, rules=rules,
+                           anchors=anchors, rids=rids, targets=targets)
+        expand_mask, keep_links = builder(ctx)
+        expand_mask = np.asarray(expand_mask, dtype=bool)
+        keep_links = np.asarray(keep_links, dtype=bool)
+
+    n_syn = 0
+    if expand_mask.any():
+        n_syn = tb.expand_synonyms(trie, rules, anchors, rids, targets,
+                                   expand_mask)
+    else:
+        tb.rebuild_edges(trie)
+
+    link_sel = keep_links[rids] if n_links else np.zeros(0, bool)
+    tb.set_link_store(trie, anchors[link_sel], rids[link_sel],
+                      targets[link_sel])
+    # rule trie holds only rules that still live on the rule side
+    active = np.zeros(n_rules, dtype=bool)
+    if n_links:
+        active[np.unique(rids[link_sel])] = True
+    rule_trie = tb.build_rule_trie(rules, active)
+
+    tb.pack_rule_planes(trie, rule_trie)
+    tb.pack_stream_tiles(trie, rule_trie)
+
+    has_rule_side = bool(active.any())
+    cfg = EngineConfig(
+        frontier=spec.frontier, gens=spec.gens, expand=spec.expand,
+        max_steps=spec.max_steps,
+        rule_matches=rule_trie.max_matches_per_pos if has_rule_side else 0,
+        max_lhs_len=rule_trie.max_lhs_len if has_rule_side else 0,
+        max_terms_per_node=rule_trie.max_terms_per_node,
+        teleports=trie.max_syn_targets,
+        tele_width=trie.tele_plane.shape[1],
+        term_width=rule_trie.term_plane.shape[1],
+        edit_budget=spec.edit_budget,
+        branch_width=max(int(np.diff(trie.first_child).max(initial=0)), 1),
+        walk_tile=trie.walk_tile, emit_tile=trie.emit_tile,
+        link_tile=trie.link_tile,
+        use_cache=spec.cache_k > 0, cache_k=spec.cache_k,
+        substrate=resolve_substrate(spec.substrate, device),
+        compression=spec.compression,
+    )
+    validate_rule_planes(trie, rule_trie, cfg)
+    stats = _make_stats(spec, trie, rule_trie, n_syn, link_sel, expand_mask,
+                        len(ss), time.perf_counter() - t0)
+    return CompletionIndex(spec, trie, rule_trie, rules, ss, sc, cfg, stats,
+                           device=device)
+
+
+def validate_rule_planes(trie, rule_trie, cfg) -> None:
+    """Cross-check the rule plane and the tile-aligned layout against the
+    static widths the engine was configured with.  Runs at build time and
+    again when a container is loaded, so a stale or hand-edited container
+    fails loudly instead of mis-gathering on device."""
+    n = trie.n_nodes
+    checks = [
+        ("tele_plane", trie.tele_plane, (n, cfg.tele_width)),
+        ("link_ptr", trie.link_ptr, (n + 1,)),
+        ("term_plane", rule_trie.term_plane,
+         (rule_trie.n_nodes, cfg.term_width)),
+    ]
+    for name, arr, want in checks:
+        if arr is None or tuple(arr.shape) != want:
+            got = None if arr is None else tuple(arr.shape)
+            raise ValueError(
+                f"rule plane {name!r} has shape {got}, expected {want}; "
+                "rebuild the index (or re-save the container)")
+    if cfg.tele_width != max(cfg.teleports, 1):
+        raise ValueError(
+            f"rule plane width mismatch: tele_width={cfg.tele_width} but "
+            f"teleports={cfg.teleports}")
+    if cfg.term_width != max(cfg.max_terms_per_node, 1):
+        raise ValueError(
+            f"rule plane width mismatch: term_width={cfg.term_width} but "
+            f"max_terms_per_node={cfg.max_terms_per_node}")
+    if int(trie.link_ptr[-1]) > len(trie.link_rule):
+        raise ValueError("link_ptr does not cover the link store rows")
+    validate_stream_tiles(trie, cfg)
+
+
+def validate_stream_tiles(trie, cfg) -> None:
+    """Cross-check the tile-aligned flat-table layout (every flat CSR /
+    emission / link array padded to a tile multiple one tile past its real
+    length) against the recorded tile widths."""
+    groups = [
+        ("walk_tile", cfg.walk_tile, trie.walk_tile,
+         [(trie.first_child, trie.edge_char), (trie.first_child,
+                                               trie.edge_child),
+          (trie.s_first_child, trie.s_edge_char),
+          (trie.s_first_child, trie.s_edge_child)]),
+        ("emit_tile", cfg.emit_tile, trie.emit_tile,
+         [(trie.emit_ptr, trie.emit_node), (trie.emit_ptr, trie.emit_score),
+          (trie.emit_ptr, trie.emit_is_leaf)]),
+        ("link_tile", cfg.link_tile, trie.link_tile,
+         [(trie.link_ptr, trie.link_rule), (trie.link_ptr,
+                                            trie.link_target)]),
+    ]
+    for name, want, got, pairs in groups:
+        if want != got:
+            raise ValueError(
+                f"stream tile mismatch: cfg.{name}={want} but the trie "
+                f"was packed with {got}; rebuild the index")
+        for ptr, arr in pairs:
+            real = int(ptr[-1])
+            if int(np.diff(ptr).max(initial=0)) > want:
+                raise ValueError(
+                    f"stream tile {name}={want} narrower than the longest "
+                    "CSR row; rebuild the index")
+            expect = 0 if real == 0 else tb._tiled_len(real, want)
+            if len(arr) != expect:
+                raise ValueError(
+                    f"stream layout under {name} has flat length "
+                    f"{len(arr)}, expected {expect} for {real} rows; "
+                    "rebuild the index")
+
+
+def _make_stats(spec, trie, rule_trie, n_syn, link_sel, expand_mask,
+                n_strings, seconds) -> BuildStats:
+    """Byte accounting (paper Table 2 / Fig. 5 breakdown)."""
+    n_nodes = trie.n_nodes
+    node_bytes = sum(getattr(trie, n).nbytes for n in (
+        "parent", "depth", "chr_", "max_score", "leaf_score", "leaf_sid",
+        "syn_mask", "tout"))
+    edge_bytes = sum(getattr(trie, n).nbytes for n in (
+        "first_child", "edge_char", "edge_child", "emit_ptr", "emit_node",
+        "emit_score", "emit_is_leaf"))
+    syn_edge_bytes = sum(getattr(trie, n).nbytes for n in (
+        "s_first_child", "s_edge_char", "s_edge_child", "syn_ptr",
+        "syn_tgt", "tele_plane"))
+    link_bytes = sum(getattr(trie, n).nbytes for n in (
+        "link_anchor", "link_rule", "link_target", "link_ptr"))
+    cache_bytes = (trie.topk_score.nbytes + trie.topk_sid.nbytes
+                   if trie.topk_score is not None else 0)
+    syn_frac = n_syn / max(n_nodes, 1)
+    return BuildStats(
+        kind=spec.kind, n_strings=n_strings, n_nodes=n_nodes,
+        n_syn_nodes=n_syn,
+        n_links=int(link_sel.sum()) if len(link_sel) else 0,
+        n_rules_expanded=int(expand_mask.sum()),
+        build_seconds=seconds,
+        bytes_total=node_bytes + edge_bytes + syn_edge_bytes + link_bytes
+        + rule_trie.nbytes() + cache_bytes,
+        bytes_dict_nodes=int((node_bytes + edge_bytes) * (1 - syn_frac)),
+        bytes_syn_nodes=int((node_bytes + edge_bytes) * syn_frac)
+        + syn_edge_bytes,
+        bytes_rule_side=link_bytes + rule_trie.nbytes(),
+        bytes_cache=cache_bytes,
+    )

@@ -1,0 +1,221 @@
+"""CompletionIndex: the queryable completion index on one device.
+
+Construction lives in :mod:`repro_torch.api.build` (driven by an
+:class:`~repro_torch.api.spec.IndexSpec`) and loading in
+:mod:`repro_torch.api.persist`; this module owns the device tensors and
+batched lookup with the exactness-retry guard.  PyTorch runs eagerly, so
+there is no compile cache; batch and query length are still bucketed to
+powers of two, as in the JAX package, so both packages run every query at
+the same shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from repro_torch.api.build import BuildStats
+from repro_torch.api.spec import IndexSpec
+from repro_torch.core import trie_build as tb
+from repro_torch.core.alphabet import pad_queries
+from repro_torch.core.engine import substrate as subs
+from repro_torch.core.engine.structs import (DeviceTrie, EngineConfig,
+                                             resolve_device)
+from repro_torch.not_ported import not_ported
+
+#: IndexSpec fields :meth:`CompletionIndex.reconfigure` may change
+RUNTIME_FIELDS = ("substrate", "frontier", "gens", "expand", "max_steps",
+                  "edit_budget")
+
+
+
+def bucket_size(n: int, minimum: int = 8) -> int:
+    """Round ``n`` up to the next power of two (at least ``minimum``)."""
+    n = max(int(n), 1)
+    return max(minimum, 1 << (n - 1).bit_length())
+
+
+def _to_device(trie: tb.DictTrie, rule_trie: tb.RuleTrie,
+               device: torch.device) -> DeviceTrie:
+    def j(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    dummy = np.full((1, 1), -1, np.int32)
+    return DeviceTrie(
+        depth=j(trie.depth), max_score=j(trie.max_score),
+        leaf_score=j(trie.leaf_score), leaf_sid=j(trie.leaf_sid),
+        syn_mask=j(trie.syn_mask), tout=j(trie.tout),
+        first_child=j(trie.first_child), edge_char=j(trie.edge_char),
+        edge_child=j(trie.edge_child),
+        s_first_child=j(trie.s_first_child), s_edge_char=j(trie.s_edge_char),
+        s_edge_child=j(trie.s_edge_child),
+        emit_ptr=j(trie.emit_ptr), emit_node=j(trie.emit_node),
+        emit_score=j(trie.emit_score), emit_is_leaf=j(trie.emit_is_leaf),
+        tele_plane=j(trie.tele_plane),
+        link_ptr=j(trie.link_ptr), link_rule=j(trie.link_rule),
+        link_target=j(trie.link_target),
+        r_first_child=j(rule_trie.first_child),
+        r_edge_char=j(rule_trie.edge_char),
+        r_edge_child=j(rule_trie.edge_child),
+        r_term_plane=j(rule_trie.term_plane),
+        r_rule_len=j(rule_trie.rule_len),
+        topk_score=j(dummy), topk_sid=j(dummy),
+    )
+
+
+def _as_port(cls, obj):
+    """A port DictTrie/RuleTrie from one of the same field names (such as
+    the JAX package's numpy structures)."""
+    if isinstance(obj, cls):
+        return obj
+    if getattr(obj, "p_labels", None) is not None:
+        raise not_ported("packed")
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{n: getattr(obj, n) for n in names if hasattr(obj, n)})
+
+
+class CompletionIndex:
+    """A synonym-aware top-k completion index (TT, ET, HT or plain)."""
+
+    def __init__(self, spec: IndexSpec, trie, rule_trie, rules, strings,
+                 scores, cfg: EngineConfig, stats: BuildStats | None, *,
+                 device):
+        self.spec = spec
+        self.trie = trie
+        self.rule_trie = rule_trie
+        self.rules = rules
+        self.strings = strings          # sorted; leaf_sid indexes this
+        self.scores = scores
+        self.cfg = cfg
+        self.stats = stats
+        self.device = torch.device(device)
+        self.tensors = _to_device(trie, rule_trie, self.device)
+
+    @classmethod
+    def from_parts(cls, trie, rule_trie, rules, strings, scores, cfg,
+                   device=None, spec: IndexSpec | None = None):
+        """An index from host arrays built elsewhere — the numpy
+        structures of a ``repro`` build (``index.trie``,
+        ``index.rule_trie``, ``index.cfg``, ...) — on ``device``."""
+        from repro_torch.api.build import validate_rule_planes
+        from repro_torch.api.persist import engine_config
+
+        device = resolve_device(device)
+        trie = _as_port(tb.DictTrie, trie)
+        rule_trie = _as_port(tb.RuleTrie, rule_trie)
+        cfg = engine_config(cfg, trie, rule_trie,
+                            spec.substrate if spec else "auto", device)
+        if spec is None:
+            spec = IndexSpec(frontier=cfg.frontier, gens=cfg.gens,
+                             expand=cfg.expand, max_steps=cfg.max_steps)
+        validate_rule_planes(trie, rule_trie, cfg)
+        return cls(spec, trie, rule_trie, list(rules), list(strings),
+                   np.asarray(scores), cfg, None, device=device)
+
+    @property
+    def kind(self) -> str:
+        return self.spec.kind
+
+    @property
+    def substrate(self) -> str:
+        """The resolved execution substrate lookups run on."""
+        return self.cfg.substrate
+
+    def reconfigure(self, **changes) -> "CompletionIndex":
+        """Change runtime knobs (:data:`RUNTIME_FIELDS`) in one validated
+        step; returns ``self``."""
+        unknown = set(changes) - set(RUNTIME_FIELDS)
+        if unknown:
+            raise ValueError(
+                f"unknown reconfigure field(s) {sorted(unknown)}; "
+                f"runtime knobs are {RUNTIME_FIELDS}")
+        self.spec = self.spec.replace(**changes).validate()
+        if "substrate" in changes:
+            changes["substrate"] = subs.resolve_substrate(
+                changes["substrate"], self.device)
+        self.cfg = replace(self.cfg, **changes)
+        return self
+
+    # -- out-of-slice surfaces -------------------------------------------
+
+    def save(self, path: str) -> None:
+        raise not_ported("save")
+
+    def session(self, k: int = 10):
+        raise not_ported("sessions")
+
+    def insert(self, string, score: int):
+        raise not_ported("mutations")
+
+    def delete(self, string):
+        raise not_ported("mutations")
+
+    def update_score(self, string, score: int):
+        raise not_ported("mutations")
+
+    def compact(self, handoff_path: str | None = None):
+        raise not_ported("mutations")
+
+    # -- lookup ------------------------------------------------------------
+
+    def _run(self, qs: np.ndarray, qlens: np.ndarray, k: int,
+             cfg: EngineConfig):
+        q = torch.from_numpy(np.ascontiguousarray(qs, np.int32)).to(self.device)
+        ql = torch.from_numpy(np.ascontiguousarray(qlens, np.int32)).to(
+            self.device)
+        scores, sids, exact = subs.complete_batch(self.tensors, cfg, q, ql, k)
+        return scores.cpu().numpy(), sids.cpu().numpy(), exact.cpu().numpy()
+
+    def complete_batch_padded(self, qs: np.ndarray, qlens: np.ndarray,
+                              k: int):
+        """Batch entry point: qs int32[B, L] (-1 padded).  Shapes are
+        bucketed to powers of two; inexact queries are retried with
+        widened search, up to three rounds (exactness guard of §2.2)."""
+        B, L = qs.shape
+        Bb, Lb = bucket_size(B, minimum=1), bucket_size(L)
+        if (Bb, Lb) != (B, L):
+            qs = np.pad(qs, ((0, Bb - B), (0, Lb - L)), constant_values=-1)
+            qlens = np.pad(qlens, (0, Bb - B))
+        cfg = self.cfg
+        scores, sids, exact = self._run(qs, qlens, k, cfg)
+        bad = ~exact
+        bad[B:] = False
+        tries = 0
+        while bad.any() and tries < 3:
+            cfg = replace(cfg, frontier=cfg.frontier * 2, gens=cfg.gens * 4,
+                          max_steps=cfg.max_steps * 4, use_cache=False)
+            sub = np.nonzero(bad)[0]
+            Sb = bucket_size(len(sub), minimum=1)
+            pad_sub = np.pad(sub, (0, Sb - len(sub)))  # repeat row 0: harmless
+            s2, i2, e2 = self._run(qs[pad_sub], qlens[pad_sub], k, cfg)
+            scores[sub], sids[sub] = s2[:len(sub)], i2[:len(sub)]
+            bad2 = np.zeros_like(bad)
+            bad2[sub] = ~e2[:len(sub)]
+            bad = bad2
+            tries += 1
+        return scores[:B], sids[:B]
+
+    def complete(self, queries: list[str | bytes], k: int = 10):
+        """Top-k completions for a batch of query strings.
+
+        Returns a list (per query) of (score, suggestion string) pairs.
+        """
+        max_len = max((len(q.encode() if isinstance(q, str) else q)
+                       for q in queries), default=1)
+        qs, qlens = pad_queries(queries, max(max_len, 1))
+        scores, sids = self.complete_batch_padded(qs, qlens, k)
+        return [self._decode_row(scores[b], sids[b])
+                for b in range(len(queries))]
+
+    def _decode_row(self, scores, sids) -> list[tuple[int, str]]:
+        row = []
+        for score, sid in zip(np.asarray(scores).tolist(),
+                              np.asarray(sids).tolist()):
+            if score < 0 or sid < 0:
+                continue
+            row.append((score, self.strings[sid].decode(
+                "utf-8", errors="replace")))
+        return row

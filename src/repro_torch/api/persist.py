@@ -1,0 +1,146 @@
+"""Load a completion-index container saved by the JAX package.
+
+``load_index(path, device=None)`` reads the versioned npz container that
+``repro``'s ``CompletionIndex.save`` writes — a JSON ``__meta__`` plus
+``trie__*`` / ``rule_trie__*`` arrays, the sorted strings, scores and rules
+— into the port's host structures and :class:`EngineConfig`, and puts the
+index on the device.  This is the bridge that carries a built index across
+the two packages with its node ids intact.
+
+Formats 1-4 load when uncompressed (format 4 without compression is
+byte-compatible with 3); older containers have their rule planes and tile
+layout rebuilt here.  ``branch_width`` and the plane and tile widths are
+recomputed from the structures themselves.  A packed container raises.
+Saving is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+
+from repro_torch.api.spec import IndexSpec
+from repro_torch.core import trie_build as tb
+from repro_torch.core.engine.structs import EngineConfig, resolve_device
+from repro_torch.core.engine.substrate import (available_substrates,
+                                               resolve_substrate)
+from repro_torch.not_ported import not_ported
+
+_SUPPORTED_VERSIONS = (1, 2, 3, 4)
+_META_KEY = "__meta__"
+
+
+def _unpack_bytes(blob: np.ndarray, offsets: np.ndarray) -> list[bytes]:
+    raw = blob.tobytes()
+    return [raw[offsets[i]:offsets[i + 1]] for i in range(len(offsets) - 1)]
+
+
+def engine_config(cfg, trie: tb.DictTrie, rule_trie: tb.RuleTrie,
+                  substrate: str, device) -> EngineConfig:
+    """The port's EngineConfig from a saved or foreign config (a dict or a
+    dataclass with the JAX package's field names), with ``branch_width``
+    and the plane and tile widths recomputed from the structures."""
+    if dataclasses.is_dataclass(cfg):
+        cfg = dataclasses.asdict(cfg)
+    if cfg.get("compression", "none") != "none":
+        raise not_ported("packed")
+    known = {f.name for f in dataclasses.fields(EngineConfig)}
+    kw = {k: v for k, v in cfg.items() if k in known}
+    kw.update(
+        substrate=resolve_substrate(substrate, device),
+        term_width=rule_trie.term_plane.shape[1],
+        branch_width=max(int(np.diff(trie.first_child).max(initial=0)), 1),
+        tele_width=trie.tele_plane.shape[1],
+        walk_tile=trie.walk_tile, emit_tile=trie.emit_tile,
+        link_tile=trie.link_tile)
+    out = EngineConfig(**kw)
+    if out.use_cache:
+        raise not_ported("cache")
+    if out.edit_budget:
+        raise not_ported("edits")
+    return out
+
+
+def load_index_parts(path: str, device) -> dict:
+    """Read the container into constructor-ready parts."""
+    from repro_torch.api.build import BuildStats, validate_rule_planes
+
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path = path + ".npz"   # np.savez appended the suffix on save
+    with np.load(path) as z:
+        if _META_KEY not in z:
+            raise ValueError(f"{path}: not a completion-index container")
+        meta = json.loads(z[_META_KEY].tobytes().decode())
+        version = meta.get("format_version")
+        if version not in _SUPPORTED_VERSIONS:
+            raise ValueError(
+                f"{path}: unsupported index format version {version!r} "
+                f"(this build reads versions {_SUPPORTED_VERSIONS})")
+        if meta["spec"].get("compression", "none") != "none":
+            raise not_ported("packed")
+
+        def group(prefix: str) -> dict[str, np.ndarray]:
+            return {k[len(prefix):]: z[k] for k in z.files
+                    if k.startswith(prefix)}
+
+        trie_arrays = group("trie__")
+        if set(trie_arrays) & set(tb.PACKED_ONLY_FIELDS):
+            raise not_ported("packed")
+        rt_arrays = group("rule_trie__")
+        ts = meta["trie_scalars"]
+        if ts["has_cache"]:
+            raise not_ported("cache")
+        trie_arrays.pop("topk_score", None)
+        trie_arrays.pop("topk_sid", None)
+        trie = tb.DictTrie(**trie_arrays,
+                           max_depth=ts["max_depth"],
+                           max_syn_targets=ts["max_syn_targets"],
+                           walk_tile=ts.get("walk_tile", 0),
+                           emit_tile=ts.get("emit_tile", 0),
+                           link_tile=ts.get("link_tile", 0))
+        rule_trie = tb.RuleTrie(**rt_arrays, **meta["rule_trie_scalars"])
+        if version < 2:   # pre-rule-plane container: rebuild from the CSRs
+            tb.pack_rule_planes(trie, rule_trie)
+        if version < 3:   # pre-stream-layout container: re-pack the tiles
+            tb.pack_stream_tiles(trie, rule_trie)
+        strings = _unpack_bytes(z["strings__blob"], z["strings__offsets"])
+        scores = z["scores"]
+        rules = [tb.SynonymRule(lhs, rhs) for lhs, rhs in zip(
+            _unpack_bytes(z["rules__lhs_blob"], z["rules__lhs_offsets"]),
+            _unpack_bytes(z["rules__rhs_blob"], z["rules__rhs_offsets"]))]
+
+    # the substrate is a property of the host that loads, not of the one
+    # that saved: the JAX package's names ("jnp", "pallas") become "auto"
+    spec_d = dict(meta["spec"])
+    if spec_d.get("substrate") not in available_substrates():
+        spec_d["substrate"] = "auto"
+    spec = IndexSpec.from_dict(spec_d)
+    cfg = engine_config(meta["cfg"], trie, rule_trie, spec.substrate, device)
+    validate_rule_planes(trie, rule_trie, cfg)
+    known = {f.name for f in dataclasses.fields(BuildStats)}
+    return {
+        "spec": spec,
+        "trie": trie,
+        "rule_trie": rule_trie,
+        "rules": rules,
+        "strings": strings,
+        "scores": scores,
+        "cfg": cfg,
+        "stats": BuildStats(**{k: v for k, v in meta["stats"].items()
+                               if k in known}),
+    }
+
+
+def load_index(path: str, device=None):
+    """Load a container saved by ``repro``'s ``CompletionIndex.save`` onto
+    ``device`` (CUDA unless the caller passes another)."""
+    from repro_torch.api.index import CompletionIndex
+
+    device = resolve_device(device)
+    p = load_index_parts(path, device)
+    return CompletionIndex(p["spec"], p["trie"], p["rule_trie"], p["rules"],
+                           p["strings"], p["scores"], p["cfg"], p["stats"],
+                           device=device)

@@ -1,0 +1,141 @@
+"""Declarative index specification + pluggable builder registry.
+
+An :class:`IndexSpec` captures *what* index to build (kind, HT space budget,
+cache depth) and the static engine widths.  The per-kind rule-partitioning
+policies (``tt`` / ``et`` / ``ht`` / ``plain``) register themselves in a
+builder registry (:mod:`repro_torch.api.build`).  Options the port does
+not run yet raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+
+from repro_torch.core import trie_build as tb
+from repro_torch.not_ported import not_ported
+
+
+@dataclass(frozen=True)
+class IndexSpec:
+    """Everything needed to (re)build a completion index, minus the data.
+
+    kind: "tt" (twin tries), "et" (expansion trie), "ht" (hybrid), or
+        "plain" (prefix-only, no synonym support).
+    alpha: HT space ratio in [0, 1] (paper Fig. 8); ignored by other kinds.
+    cache_k: materialized per-node top-K lists (only 0 is ported).
+    frontier/gens/expand/max_steps: static engine widths.
+    substrate: "torch" (plain PyTorch versions), "cuda" (hand-written
+        kernels) or "auto" (cuda on a CUDA device, torch on the CPU).
+    compression: on-device layout (only "none" is ported).
+    edit_budget: bounded-edit matching (only 0 is ported).
+    """
+
+    kind: str = "et"
+    alpha: float = 0.5
+    cache_k: int = 0
+    frontier: int = 32
+    gens: int = 48
+    expand: int = 8
+    max_steps: int = 512
+    substrate: str = "auto"
+    compression: str = "none"
+    edit_budget: int = 0
+
+    def validate(self) -> "IndexSpec":
+        if self.kind == "multiterm":
+            raise not_ported("multiterm")
+        if self.kind not in _BUILDERS:
+            raise ValueError(
+                f"unknown index kind {self.kind!r}; registered kinds: "
+                f"{registered_kinds()}")
+        if not 0.0 <= self.alpha <= 1.0:
+            raise ValueError(f"alpha must be in [0, 1], got {self.alpha}")
+        from repro_torch.core.engine.substrate import available_substrates
+        if self.substrate != "auto" and \
+                self.substrate not in available_substrates():
+            raise ValueError(
+                f"unknown substrate {self.substrate!r}; expected 'auto' or "
+                f"one of {available_substrates()}")
+        if self.compression not in ("none", "packed"):
+            raise ValueError(
+                f"unknown compression {self.compression!r}; expected "
+                "'none' or 'packed'")
+        if self.cache_k < 0:
+            raise ValueError("cache_k must be >= 0")
+        for name in ("frontier", "gens", "expand", "max_steps"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be positive")
+        if not 0 <= self.edit_budget <= 2:
+            raise ValueError(
+                f"edit_budget must be in [0, 2], got {self.edit_budget}")
+        if self.cache_k > 0:
+            raise not_ported("cache")
+        if self.edit_budget > 0:
+            raise not_ported("edits")
+        if self.compression != "none":
+            raise not_ported("packed")
+        return self
+
+    def validate_sharded(self) -> "IndexSpec":
+        raise not_ported("sharding")
+
+    def replace(self, **kw) -> "IndexSpec":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "IndexSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known}).validate()
+
+
+@dataclass
+class BuildContext:
+    """What a kind-specific builder sees: the pure dictionary trie plus the
+    full link candidate set (anchor, rule, target) found on it."""
+
+    spec: IndexSpec
+    trie: tb.DictTrie
+    rules: list[tb.SynonymRule]
+    anchors: np.ndarray  # int32[L]
+    rids: np.ndarray     # int32[L]
+    targets: np.ndarray  # int32[L]
+
+
+# A builder decides, per rule, whether it is expanded into synonym branches
+# (ET side) and/or kept in the link store (TT side).
+Builder = Callable[[BuildContext], tuple[np.ndarray, np.ndarray]]
+
+_BUILDERS: dict[str, Builder] = {}
+
+
+def register_builder(kind: str):
+    """Register a rule-partitioning policy for an index kind.
+
+    The decorated function maps a :class:`BuildContext` to boolean masks
+    ``(expand_mask[R], keep_links[R])`` over rule ids.
+    """
+
+    def deco(fn: Builder) -> Builder:
+        if kind in _BUILDERS:
+            raise ValueError(f"index kind {kind!r} already registered")
+        _BUILDERS[kind] = fn
+        return fn
+
+    return deco
+
+
+def get_builder(kind: str) -> Builder:
+    try:
+        return _BUILDERS[kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown index kind {kind!r}; registered kinds: "
+            f"{registered_kinds()}") from None
+
+
+def registered_kinds() -> list[str]:
+    return sorted(_BUILDERS)

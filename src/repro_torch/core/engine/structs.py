@@ -1,0 +1,97 @@
+"""Engine data structures: the device-resident trie and the static config.
+
+:class:`DeviceTrie` is the tensor encoding of a built TT/ET/HT/plain index
+in the dense layout (one NamedTuple of tensors on one device).
+:class:`EngineConfig` holds every static shape parameter; it is frozen and
+hashable, and it names the execution ``substrate`` (see
+:mod:`repro_torch.core.engine.substrate`) the entry points dispatch through.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+INT_MAX = 2**31 - 1
+NEG_ONE = -1
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an index lives on: CUDA unless the caller names another.
+    The default raises on a host without CUDA — it never carries on on the
+    CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the card unless the caller "
+            "passes device='cpu'")
+    return dev
+
+
+class DeviceTrie(NamedTuple):
+    # dict-trie node arrays
+    depth: torch.Tensor        # int32[N]
+    max_score: torch.Tensor    # int32[N]
+    leaf_score: torch.Tensor   # int32[N]
+    leaf_sid: torch.Tensor     # int32[N]
+    syn_mask: torch.Tensor     # bool[N]
+    tout: torch.Tensor         # int32[N]
+    # dict child CSR
+    first_child: torch.Tensor  # int32[N+1]
+    edge_char: torch.Tensor    # int32[E]
+    edge_child: torch.Tensor   # int32[E]
+    # synonym child CSR
+    s_first_child: torch.Tensor
+    s_edge_char: torch.Tensor
+    s_edge_child: torch.Tensor
+    # emissions
+    emit_ptr: torch.Tensor
+    emit_node: torch.Tensor
+    emit_score: torch.Tensor
+    emit_is_leaf: torch.Tensor  # bool[M]
+    # rule plane: teleports as a dense -1 padded plane, the link store as
+    # a per-anchor CSR over rule-sorted rows
+    tele_plane: torch.Tensor   # int32[N, tele_width]
+    link_ptr: torch.Tensor     # int32[N+1]
+    link_rule: torch.Tensor    # int32[Lk]
+    link_target: torch.Tensor  # int32[Lk]
+    # rule trie (CSR children + dense term plane)
+    r_first_child: torch.Tensor
+    r_edge_char: torch.Tensor
+    r_edge_child: torch.Tensor
+    r_term_plane: torch.Tensor  # int32[Nr, term_width], -1 padded
+    r_rule_len: torch.Tensor
+    # materialized per-node top-K (dummy (1,1) when disabled)
+    topk_score: torch.Tensor
+    topk_sid: torch.Tensor
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Static engine shape parameters (hashable)."""
+
+    frontier: int = 32          # F: locus DP width
+    gens: int = 48              # W: generator pool width (beam phase)
+    expand: int = 8             # P: emissions popped per beam step
+    max_steps: int = 256        # beam step cap
+    rule_matches: int = 0       # M: max lhs matches per query position
+    max_lhs_len: int = 0        # rule-trie walk depth
+    edit_budget: int = 0        # bounded-edit mode (only 0 is ported)
+    branch_width: int = 1       # max dict fanout
+    max_terms_per_node: int = 1
+    teleports: int = 0          # Ts: max teleport targets per node
+    # column counts of tele_plane / r_term_plane (always >= 1)
+    tele_width: int = 1
+    term_width: int = 1
+    # widths of the tile-aligned flat-table layout the container carries
+    # (checked on load; one CUDA kernel reads any row, so the port does
+    # not window by them)
+    walk_tile: int = 8
+    emit_tile: int = 8
+    link_tile: int = 8
+    use_cache: bool = False     # phase 2 via materialized top-K
+    cache_k: int = 0
+    substrate: str = "torch"    # execution substrate ("torch" | "cuda")
+    compression: str = "none"

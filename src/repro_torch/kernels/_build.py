@@ -1,0 +1,134 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``: tensor
+pointers and the CUDA stream go in as ``c_void_p``, every launch function
+returns ``cudaGetLastError()``, and :func:`check_launch` raises when that
+is not 0.  Builds happen at first use, from the sources in this checkout
+only, into ``build/repro_torch_kernels/`` at the repository root (one
+``nvcc`` per source, all started together).  A library is named by a hash
+of its source and flags, so an edited source is rebuilt and a built one is
+reused.  There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("trie_walk", "locus_dp", "beam_topk")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: per source, what ``nvcc -Xptxas -v`` reported (registers, shared memory,
+#: spills) when this process built it
+ptxas_log: dict[str, str] = {}
+#: wall seconds of the last :func:`build_all` that compiled anything
+build_seconds: float | None = None
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are compiled from "
+        "src/repro_torch/kernels/csrc at first use (set NVCC or put the "
+        "CUDA toolkit's bin/ on PATH)")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> None:
+    """Compile every kernel source that has no library yet, one ``nvcc``
+    process per source, all running at once; raise if any fails."""
+    global build_seconds
+    todo = [n for n in SOURCES if not _target(n).exists()]
+    if not todo:
+        return
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for name in todo:
+        out = _target(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        ptxas_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name`` (built if needed)."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+        _libs[name] = lib
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(library(name), f"{name}_error_string")(err)
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({msg.decode()})")
+
+
+def check_tensors(name: str, device: torch.device, **tensors) -> None:
+    """Every tensor on ``device`` (a CUDA device) and contiguous; int32
+    unless it is bool."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {device} have no kernel")
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype not in (torch.int32, torch.bool):
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected "
+                            "int32 (or bool)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+#: the per-block dynamic shared memory a kernel may ask for on Hopper
+MAX_SHARED_BYTES = 232_448

@@ -1,0 +1,107 @@
+"""CUDA kernel: fused beam phase 2 (generator-pool priority search).
+
+Replaces ``repro/kernels/beam_topk.py:413`` ``beam_topk_batch`` and
+``:463`` ``beam_topk_batch_streamed``: the emission tables sit in device
+memory, so one kernel (``csrc/beam_topk.cu``) covers both tiers.  One
+thread block per query keeps the pool (W), the result heap (k) and
+``dropped_max`` in shared memory; each ``lax.top_k`` of the reference is a
+block-wide bitonic sort on ``(INT_MAX - bound) << 32 | column``, and the
+block loops while the reference's condition holds.
+
+Bound on the H100: the block-wide sorts and their synchronisation — a
+query reads only the emissions it pops and the pointer pairs it re-arms.
+It takes every width the main path sends, the widened retry rounds
+included (up to W=3072, max_steps=32768 at the default spec).
+
+:func:`beam_topk_batch` launches the kernel for CUDA tensors and answers
+CPU tensors with :func:`beam_topk_plain`, the plain PyTorch version
+(:func:`repro_torch.core.engine.beam.beam_topk`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.engine import beam
+from repro_torch.core.engine.structs import DeviceTrie, EngineConfig, NEG_ONE
+from repro_torch.kernels import _build
+
+#: kernel launches (each :func:`beam_topk_batch` call on CUDA tensors that
+#: reaches the kernel adds one)
+launches = 0
+
+#: the plain version: the engine's reference priority search
+beam_topk_plain = beam.beam_topk
+
+_V, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def launch_shape(cfg: EngineConfig, k: int):
+    """(sort-key capacity, threads, shared bytes) of one block; raises
+    when the shared memory exceeds what a block may have."""
+    W, P = cfg.gens, cfg.expand
+    keys = _pow2(max(W + P, k + P))
+    threads = min(1024, max(32, keys // 2))
+    ints = 3 * W + 3 * (W + P) + 2 * k + 2 * (k + P) + 2 * P
+    shared = 8 * keys + 4 * ints
+    if shared > _build.MAX_SHARED_BYTES:
+        raise ValueError(
+            f"beam_topk: W={W}, P={P}, k={k} need {shared} bytes of shared "
+            f"memory per block, more than the {_build.MAX_SHARED_BYTES} a "
+            "block may have")
+    return keys, threads, shared
+
+
+def _lib():
+    fn = _build.library("beam_topk").beam_topk_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_V] * 6 + [_I] * 9 + [_V] * 4
+        fn.restype = _I
+    return fn
+
+
+def beam_topk_batch(t: DeviceTrie, cfg: EngineConfig, loci: torch.Tensor,
+                    k: int):
+    """Beam phase 2 over a locus batch: the kernel on CUDA tensors, the
+    plain version on CPU tensors.
+
+    loci int32[B, F] -> (scores[B, k], sids[B, k] int32, exact[B] bool)."""
+    global launches
+    if loci.device.type == "cpu":
+        return beam_topk_plain(t, cfg, loci, k)
+    dev = loci.device
+    B, F = loci.shape
+    beam.check_widths(cfg, F, k)
+    if int(t.emit_node.shape[0]) == 0:
+        # empty dictionary: mirror the reference's short-circuit
+        return (torch.full((B, k), NEG_ONE, dtype=torch.int32, device=dev),
+                torch.full((B, k), NEG_ONE, dtype=torch.int32, device=dev),
+                torch.ones(B, dtype=torch.bool, device=dev))
+    _build.check_tensors("beam_topk", dev, emit_ptr=t.emit_ptr,
+                         emit_node=t.emit_node, emit_score=t.emit_score,
+                         emit_is_leaf=t.emit_is_leaf, leaf_sid=t.leaf_sid,
+                         loci=loci)
+    if t.emit_is_leaf.dtype != torch.bool:
+        raise TypeError("beam_topk: emit_is_leaf must be bool")
+    keys, threads, shared = launch_shape(cfg, k)
+    scores = torch.empty((B, k), dtype=torch.int32, device=dev)
+    sids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    exact = torch.empty(B, dtype=torch.bool, device=dev)
+    p = _build.ptr
+    err = _lib()(p(t.emit_ptr), p(t.emit_node), p(t.emit_score),
+                 p(t.emit_is_leaf), p(t.leaf_sid), p(loci),
+                 B, F, cfg.gens, cfg.expand, k, cfg.max_steps, keys,
+                 threads, shared, p(scores), p(sids), p(exact),
+                 _build.stream(dev))
+    _build.check_launch("beam_topk", err)
+    launches += 1
+    return scores, sids, exact

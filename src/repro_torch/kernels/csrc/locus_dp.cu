@@ -1,0 +1,400 @@
+// Fused synonym-aware locus DP (phase 1 for tt/et/ht, edit budget 0) on
+// Hopper (sm_90a).
+//
+// Replaces the Pallas kernels repro/kernels/locus_dp.py:732
+// `locus_dp_walk` (tables resident in VMEM) and :773
+// `locus_dp_walk_streamed` (dictionary tables in HBM behind windowed DMA):
+// on the card every table sits in device memory and this one kernel reads
+// it there, whatever its size.
+//
+// One thread block per query.  The (L+1, F) frontier buffer lives in
+// dynamic shared memory for the whole sweep.  At each position i:
+//   - literal step: row i+1 gets the dict and synonym children of row i
+//     labelled q[i] (one lower-bound search per frontier entry);
+//   - rule steps: thread 0 descends the rule trie from position i; every
+//     full-lhs match (at most `rule_matches` per position, counted per
+//     term) looks up (anchor, rule) in the link store for each dict node
+//     of row i and merges the targets into the row where the lhs ends —
+//     only when some target exists;
+//   - write-back: row i+1 is complete, so its teleport targets are merged
+//     in.
+// Every merge is a block-wide bitonic sort of the candidate row (padded to
+// a power of two with INT_MAX for empty) and a prefix-sum compaction: ids
+// ascending, the first F kept, overflow += max(uniques - F, 0) — exactly
+// `dedup_pad`.  The final row drops synonym loci, is deduplicated again,
+// and loses every id covered by another's preorder interval [id, tout).
+//
+// Bound: the bytes a query must read are a pointer pair, a few characters
+// and a child per live frontier entry and position, plus teleport and link
+// rows — small next to the work of keeping the frontier canonical, so the
+// kernel is bound by block-wide synchronisation and the latency of its
+// dependent table loads, not by bandwidth.  What the design does about it:
+// the frontier and every merge stay in shared memory (no device-memory
+// traffic between positions), and the table lookups of one merge run in
+// parallel across the block's threads.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kIntMax = 2147483647;
+
+struct Tables {
+  const int* first_child;
+  const int* edge_char;
+  const int* edge_child;
+  int n_edges;
+  const int* s_first_child;
+  const int* s_edge_char;
+  const int* s_edge_child;
+  int n_syn_edges;
+  const unsigned char* syn_mask;
+  const int* tout;
+  const int* tele_plane;
+  int tele_width;
+  int teleports;
+  const int* link_ptr;
+  const int* link_rule;
+  const int* link_target;
+  int n_links;
+  const int* r_first_child;
+  const int* r_edge_char;
+  const int* r_edge_child;
+  int n_r_edges;
+  const int* r_term_plane;
+  int term_width;
+};
+
+struct Shape {
+  int frontier;
+  int seq_len;
+  int rule_matches;
+  int max_lhs_len;
+  int max_terms;
+  int cand_cap;
+};
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Child of `node` labelled `c` in a CSR trie, or -1.
+__device__ __forceinline__ int csr_child(const int* __restrict__ ptr,
+                                         const int* __restrict__ chars,
+                                         const int* __restrict__ children,
+                                         int n_chars, int node, int c) {
+  if (node < 0 || c < 0 || n_chars == 0) return -1;
+  int lo = ptr[node];
+  const int end = ptr[node + 1];
+  int hi = end;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (chars[mid] < c) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return (lo < end && chars[lo] == c) ? children[lo] : -1;
+}
+
+// Link-store target of (anchor, rule), or -1.
+__device__ __forceinline__ int link_lookup(const Tables& t, int anchor,
+                                           int rid) {
+  if (anchor < 0 || t.n_links == 0) return -1;
+  int lo = t.link_ptr[anchor];
+  const int end = t.link_ptr[anchor + 1];
+  int hi = end;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (t.link_rule[mid] < rid) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return (lo < end && t.link_rule[lo] == rid) ? t.link_target[lo] : -1;
+}
+
+// Ascending bitonic sort of a[0, n), n a power of two.  Called by every
+// thread of the block after a[] is written and synchronised; returns
+// synchronised.
+__device__ void bitonic_sort(int* a, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const int x = a[lo];
+        const int y = a[hi];
+        if ((x > y) == up) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ __forceinline__ bool first_of_run(const int* a, int i) {
+  return a[i] != kIntMax && (i == 0 || a[i] != a[i - 1]);
+}
+
+// Sort cand[0, n) and write its unique ids, ascending, into out[0, width)
+// (-1 padded).  Returns max(#unique - width, 0) to every thread.
+__device__ int sort_compact(int* cand, int n, int* out, int width,
+                            int* scan, int* scan2) {
+  bitonic_sort(cand, n);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    scan[i] = first_of_run(cand, i) ? 1 : 0;
+  }
+  __syncthreads();
+  int* src = scan;
+  int* dst = scan2;
+  for (int off = 1; off < n; off <<= 1) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      dst[i] = src[i] + (i >= off ? src[i - off] : 0);
+    }
+    __syncthreads();
+    int* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  const int total = src[n - 1];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    if (first_of_run(cand, i)) {
+      const int r = src[i] - 1;
+      if (r < width) out[r] = cand[i];
+    }
+  }
+  for (int j = threadIdx.x; j < width; j += blockDim.x) {
+    if (j >= total) out[j] = -1;
+  }
+  __syncthreads();
+  return total > width ? total - width : 0;
+}
+
+// row [F] += its teleport targets, deduplicated back to [F]; returns the
+// overflow of the merge.
+__device__ int tele_expand(const Tables& t, int* row, int F, int* cand,
+                           int* scan, int* scan2) {
+  const int tw = t.tele_width;
+  const int total = F * (1 + tw);
+  const int n = pow2_at_least(total);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    int v = -1;
+    if (j < F) {
+      v = row[j];
+    } else if (j < total) {
+      const int node = row[(j - F) / tw];
+      if (node >= 0) v = t.tele_plane[(long long)node * tw + (j - F) % tw];
+    }
+    cand[j] = v < 0 ? kIntMax : v;
+  }
+  __syncthreads();
+  return sort_compact(cand, n, row, F, scan, scan2);
+}
+
+__global__ void locus_dp_kernel(Tables t, Shape s,
+                                const int* __restrict__ queries,
+                                const int* __restrict__ qlens,
+                                int* __restrict__ loci_out,
+                                int* __restrict__ overflow_out) {
+  extern __shared__ int smem[];
+  const int F = s.frontier;
+  const int L = s.seq_len;
+  const int M = s.rule_matches;
+  const int C = s.cand_cap;
+  int* buf = smem;                     // (L + 1) * F frontier rows
+  int* cand = buf + (L + 1) * F;       // C candidates of one merge
+  int* scan = cand + C;                // C
+  int* scan2 = scan + C;               // C
+  int* q = scan2 + C;                  // L query characters
+  int* m_rule = q + L;                 // M rule matches of one position
+  int* m_end = m_rule + (M > 0 ? M : 1);
+  __shared__ int n_match;
+
+  const int b = blockIdx.x;
+  const int* qrow = queries + (long long)b * L;
+  for (int i = threadIdx.x; i < (L + 1) * F; i += blockDim.x) buf[i] = -1;
+  for (int i = threadIdx.x; i < L; i += blockDim.x) q[i] = qrow[i];
+  __syncthreads();
+  if (threadIdx.x == 0) buf[0] = 0;   // the root
+  __syncthreads();
+
+  int overflow = 0;   // the same in every thread: merges return it to all
+  if (t.teleports > 0) overflow += tele_expand(t, buf, F, cand, scan, scan2);
+
+  for (int i = 0; i < L; ++i) {
+    const int* row = buf + i * F;
+    int* nxt = buf + (i + 1) * F;
+    const int c = q[i];
+
+    // literal step: row i+1 U dict children U synonym children
+    const int parts = t.n_syn_edges > 0 ? 3 : 2;
+    const int n = pow2_at_least(parts * F);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      int v = -1;
+      if (j < F) {
+        v = nxt[j];
+      } else if (j < 2 * F) {
+        v = csr_child(t.first_child, t.edge_char, t.edge_child, t.n_edges,
+                      row[j - F], c);
+      } else if (j < parts * F) {
+        v = csr_child(t.s_first_child, t.s_edge_char, t.s_edge_child,
+                      t.n_syn_edges, row[j - 2 * F], c);
+      }
+      cand[j] = v < 0 ? kIntMax : v;
+    }
+    __syncthreads();
+    overflow += sort_compact(cand, n, nxt, F, scan, scan2);
+
+    // rule steps through the link store
+    if (M > 0) {
+      if (threadIdx.x == 0) {
+        int node = 0;
+        int cnt = 0;
+        for (int j = 0; j < s.max_lhs_len; ++j) {
+          const int ch = i + j < L ? q[i + j] : -1;
+          node = csr_child(t.r_first_child, t.r_edge_char, t.r_edge_child,
+                           t.n_r_edges, node, ch);
+          if (node < 0) break;
+          for (int j2 = 0; j2 < s.max_terms; ++j2) {
+            const int rid = t.r_term_plane[(long long)node * t.term_width + j2];
+            if (rid >= 0 && cnt < M) {
+              m_rule[cnt] = rid;
+              m_end[cnt] = i + j + 1;
+              ++cnt;
+            }
+          }
+        }
+        n_match = cnt;
+      }
+      __syncthreads();
+      const int nm = n_match;
+      for (int m = 0; m < nm; ++m) {
+        const int rid = m_rule[m];
+        int* dst = buf + m_end[m] * F;
+        int any = 0;
+        for (int j = threadIdx.x; j < F; j += blockDim.x) {
+          const int a = row[j];
+          int tg = -1;
+          if (a >= 0 && !t.syn_mask[a]) tg = link_lookup(t, a, rid);
+          cand[F + j] = tg < 0 ? kIntMax : tg;
+          any |= tg >= 0;
+        }
+        if (__syncthreads_or(any)) {
+          const int n2 = pow2_at_least(2 * F);
+          for (int j = threadIdx.x; j < n2; j += blockDim.x) {
+            if (j < F) {
+              cand[j] = dst[j] < 0 ? kIntMax : dst[j];
+            } else if (j >= 2 * F) {
+              cand[j] = kIntMax;
+            }
+          }
+          __syncthreads();
+          overflow += sort_compact(cand, n2, dst, F, scan, scan2);
+        }
+      }
+      __syncthreads();   // n_match and m_* are rewritten next position
+    }
+
+    // write-back: row i+1 is complete (rule ends are > i), expand it
+    if (t.teleports > 0) {
+      overflow += tele_expand(t, nxt, F, cand, scan, scan2);
+    }
+  }
+
+  // finalize the row at the query's own length
+  int ql = qlens[b];
+  ql = ql < 0 ? 0 : (ql > L ? L : ql);
+  const int* row = buf + ql * F;
+  const int n = pow2_at_least(F);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    int v = j < F ? row[j] : -1;
+    if (v >= 0 && t.syn_mask[v]) v = -1;
+    cand[j] = v < 0 ? kIntMax : v;
+  }
+  __syncthreads();
+  int* fin = buf;   // row 0 is no longer read: the row was copied to cand
+  sort_compact(cand, n, fin, F, scan, scan2);
+  for (int j = threadIdx.x; j < F; j += blockDim.x) {
+    const int x = fin[j];
+    int res = x;
+    if (x >= 0) {
+      for (int g = 0; g < F; ++g) {
+        const int y = fin[g];
+        if (g != j && y >= 0 && y <= x && x < t.tout[y]) {
+          res = -1;
+          break;
+        }
+      }
+    }
+    loci_out[(long long)b * F + j] = res;
+  }
+  if (threadIdx.x == 0) overflow_out[b] = overflow;
+}
+
+}  // namespace
+
+extern "C" int locus_dp_launch(
+    const void* first_child, const void* edge_char, const void* edge_child,
+    int n_edges, const void* s_first_child, const void* s_edge_char,
+    const void* s_edge_child, int n_syn_edges, const void* syn_mask,
+    const void* tout, const void* tele_plane, int tele_width, int teleports,
+    const void* link_ptr, const void* link_rule, const void* link_target,
+    int n_links, const void* r_first_child, const void* r_edge_char,
+    const void* r_edge_child, int n_r_edges, const void* r_term_plane,
+    int term_width, int frontier, int seq_len, int rule_matches,
+    int max_lhs_len, int max_terms, int cand_cap, int threads,
+    int shared_bytes, const void* queries, const void* qlens, int batch,
+    void* loci_out, void* overflow_out, void* stream) {
+  Tables t;
+  t.first_child = (const int*)first_child;
+  t.edge_char = (const int*)edge_char;
+  t.edge_child = (const int*)edge_child;
+  t.n_edges = n_edges;
+  t.s_first_child = (const int*)s_first_child;
+  t.s_edge_char = (const int*)s_edge_char;
+  t.s_edge_child = (const int*)s_edge_child;
+  t.n_syn_edges = n_syn_edges;
+  t.syn_mask = (const unsigned char*)syn_mask;
+  t.tout = (const int*)tout;
+  t.tele_plane = (const int*)tele_plane;
+  t.tele_width = tele_width;
+  t.teleports = teleports;
+  t.link_ptr = (const int*)link_ptr;
+  t.link_rule = (const int*)link_rule;
+  t.link_target = (const int*)link_target;
+  t.n_links = n_links;
+  t.r_first_child = (const int*)r_first_child;
+  t.r_edge_char = (const int*)r_edge_char;
+  t.r_edge_child = (const int*)r_edge_child;
+  t.n_r_edges = n_r_edges;
+  t.r_term_plane = (const int*)r_term_plane;
+  t.term_width = term_width;
+  Shape s;
+  s.frontier = frontier;
+  s.seq_len = seq_len;
+  s.rule_matches = rule_matches;
+  s.max_lhs_len = max_lhs_len;
+  s.max_terms = max_terms;
+  s.cand_cap = cand_cap;
+  if (batch > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        locus_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    locus_dp_kernel<<<batch, threads, shared_bytes, (cudaStream_t)stream>>>(
+        t, s, (const int*)queries, (const int*)qlens, (int*)loci_out,
+        (int*)overflow_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* locus_dp_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,27 @@
+"""Options and surfaces of the JAX package that the port does not run yet.
+
+Each raises ``NotImplementedError`` naming the ROADMAP.md §1 item that
+ports it; none runs quietly on a plain version.
+"""
+
+from __future__ import annotations
+
+_ITEMS = {
+    "cache": (2, "cache_k > 0 (the cached phase 2)"),
+    "edits": (3, "edit_budget > 0 (bounded-edit matching)"),
+    "sessions": (4, "incremental sessions"),
+    "scheduler": (5, "the keystroke scheduler (batching=True)"),
+    "reranking": (5, "reranking"),
+    "mutations": (6, "online mutations"),
+    "packed": (7, "compression='packed' (the compressed layout)"),
+    "sharding": (8, "sharded indexes"),
+    "save": (9, "saving an index (containers saved by the JAX package "
+                "load with load_index)"),
+    "multiterm": (9, "kind='multiterm' (multi-term completion)"),
+}
+
+
+def not_ported(feature: str) -> NotImplementedError:
+    item, what = _ITEMS[feature]
+    return NotImplementedError(
+        f"{what} is not ported yet; see ROADMAP.md §1 item {item}")

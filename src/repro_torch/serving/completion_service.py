@@ -1,0 +1,78 @@
+"""CompletionService: the paper's technique as the serving front-end.
+
+Wraps a local completion index and answers batches of queries through
+:meth:`CompletionService.complete`, keeping per-request latency stats.
+Per-keystroke sessions, the continuous-batching scheduler and reranking
+are not ported yet (ROADMAP.md §1 items 4-5) and raise.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+from repro_torch.not_ported import not_ported
+
+LATENCY_WINDOW = 4096  # bound per-request latency history
+
+
+def _percentile(xs: list, q: float) -> float:
+    if not xs:
+        return 0.0
+    s = sorted(xs)
+    return s[min(int(len(s) * q), len(s) - 1)]
+
+
+def _record(xs: list, value_ms: float) -> None:
+    """Append keeping only the trailing LATENCY_WINDOW samples."""
+    xs.append(value_ms)
+    if len(xs) > LATENCY_WINDOW:
+        del xs[:len(xs) - LATENCY_WINDOW]
+
+
+@dataclass
+class ServiceStats:
+    n_queries: int = 0
+    total_seconds: float = 0.0
+    batches: int = 0
+    latencies_ms: list = field(default_factory=list)
+
+    @property
+    def p50_latency_ms(self) -> float:
+        return _percentile(self.latencies_ms, 0.50)
+
+    @property
+    def p99_latency_ms(self) -> float:
+        return _percentile(self.latencies_ms, 0.99)
+
+
+class CompletionService:
+    def __init__(self, index, reranker=None, *, batching: bool = False):
+        """index: a :class:`repro_torch.api.index.CompletionIndex`."""
+        if reranker is not None:
+            raise not_ported("reranking")
+        if batching:
+            raise not_ported("scheduler")
+        self.index = index
+        self.stats = ServiceStats()
+
+    def complete(self, queries: list[str], k: int = 10):
+        """Top-k (score, string) pairs per query.  Every request of a
+        synchronous batch waits the whole batch, so each records the batch
+        wall time (which ends after the results are back on the host)."""
+        t0 = time.perf_counter()
+        results = self.index.complete(queries, k=k)
+        dt = time.perf_counter() - t0
+        self.stats.n_queries += len(queries)
+        self.stats.total_seconds += dt
+        self.stats.batches += 1
+        for _ in queries:
+            _record(self.stats.latencies_ms, dt * 1e3)
+        return results
+
+    def reset_stats(self) -> None:
+        """Discard the accounting (e.g. after a warm-up batch)."""
+        self.stats = ServiceStats()
+
+    def open_session(self, k: int = 10):
+        raise not_ported("sessions")
