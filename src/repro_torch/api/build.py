@@ -4,8 +4,10 @@
 3 / 5 of the paper (array-encoded) on the host — build the dictionary
 trie, find all rule links, ask the spec's registered builder which rules
 to expand (ET side) vs keep in the link store (TT side), then materialize
-edges, the rule trie and byte accounting — and moves the result to the
-device.  The arrays are bit-identical to ``repro.api.build_index``'s.
+edges, the rule trie, the per-node top-K cache (``cache_k``), the rule
+planes and tiles, the compressed layout (``compression="packed"``) and
+byte accounting — and moves the result to the device.  The arrays are
+bit-identical to ``repro.api.build_index``'s.
 """
 
 from __future__ import annotations
@@ -130,8 +132,11 @@ def build_index(strings, scores, rules, spec: IndexSpec | None = None, *,
         active[np.unique(rids[link_sel])] = True
     rule_trie = tb.build_rule_trie(rules, active)
 
+    if spec.cache_k > 0:
+        tb.build_topk_cache(trie, spec.cache_k)
     tb.pack_rule_planes(trie, rule_trie)
     tb.pack_stream_tiles(trie, rule_trie)
+    widths = tb.pack_compressed(trie) if spec.compression == "packed" else {}
 
     has_rule_side = bool(active.any())
     cfg = EngineConfig(
@@ -150,6 +155,7 @@ def build_index(strings, scores, rules, spec: IndexSpec | None = None, *,
         use_cache=spec.cache_k > 0, cache_k=spec.cache_k,
         substrate=resolve_substrate(spec.substrate, device),
         compression=spec.compression,
+        table_widths=tuple(sorted(widths.items())),
     )
     validate_rule_planes(trie, rule_trie, cfg)
     stats = _make_stats(spec, trie, rule_trie, n_syn, link_sel, expand_mask,
@@ -159,10 +165,30 @@ def build_index(strings, scores, rules, spec: IndexSpec | None = None, *,
 
 
 def validate_rule_planes(trie, rule_trie, cfg) -> None:
-    """Cross-check the rule plane and the tile-aligned layout against the
-    static widths the engine was configured with.  Runs at build time and
-    again when a container is loaded, so a stale or hand-edited container
-    fails loudly instead of mis-gathering on device."""
+    """Cross-check the rule plane, the tile-aligned layout and (packed)
+    the compressed side tables against the static widths the engine was
+    configured with.  Runs at build time and again when a container is
+    loaded, so a stale or hand-edited container fails loudly instead of
+    mis-gathering on device."""
+    if (cfg.compression == "packed") != trie.has_packed:
+        raise ValueError(
+            f"compression mismatch: cfg says {cfg.compression!r} but the "
+            f"trie {'carries' if trie.has_packed else 'lacks'} the packed "
+            "layout; rebuild the index (or re-save the container)")
+    if cfg.compression == "packed":
+        validate_packed_layout(trie, cfg)
+    if trie.tele_plane is None:
+        # packed container with the dense planes elided: the rule trie is
+        # kept whole, so its plane is still checked; everything dict-side
+        # was covered by validate_packed_layout above
+        want = (rule_trie.n_nodes, cfg.term_width)
+        got = (None if rule_trie.term_plane is None
+               else tuple(rule_trie.term_plane.shape))
+        if got != want:
+            raise ValueError(
+                f"rule plane 'term_plane' has shape {got}, expected {want}; "
+                "rebuild the index")
+        return
     n = trie.n_nodes
     checks = [
         ("tele_plane", trie.tele_plane, (n, cfg.tele_width)),
@@ -225,6 +251,86 @@ def validate_stream_tiles(trie, cfg) -> None:
                     "rebuild the index")
 
 
+def validate_packed_layout(trie, cfg) -> None:
+    """Cross-check the compressed layout's side tables and recorded dtype
+    tiers.  A corrupt container (truncated table, non-monotone pointers)
+    or one whose dtype tier disagrees with ``cfg.table_widths`` (the
+    widths the kernels read them at) fails loudly here instead of mis-decoding on
+    device.  Runs at build time and again on load."""
+    if not trie.has_packed:
+        raise ValueError(
+            "compression='packed' but the trie has no packed layout; "
+            "rebuild the index (or re-save the container)")
+    n = trie.n_nodes
+    if len(trie.p_labels) != n or len(trie.p_flags) != n:
+        raise ValueError(
+            f"packed label/flag planes cover {len(trie.p_labels)} nodes, "
+            f"expected {n}")
+    groups = [
+        ("c", trie.c_ids, trie.c_eptr,
+         [trie.c_enode, trie.c_escore, trie.c_eleaf],
+         [trie.c_tout, trie.c_maxscore]),
+        ("b", trie.b_ids, trie.b_ptr, [trie.b_char, trie.b_child], []),
+        ("sb", trie.sb_ids, trie.sb_ptr, [trie.sb_char, trie.sb_child], []),
+        ("la", trie.la_ids, trie.la_ptr, [], []),
+    ]
+    for name, ids, ptr, rows, sides in groups:
+        if len(ptr) != len(ids) + 1:
+            raise ValueError(
+                f"packed table {name!r}: pointer length {len(ptr)} does "
+                f"not fit {len(ids)} ids")
+        if len(ids) and not (np.diff(ids.astype(np.int64)) > 0).all():
+            raise ValueError(f"packed table {name!r}: ids not sorted")
+        if len(ptr) and (np.diff(ptr.astype(np.int64)) < 0).any():
+            raise ValueError(f"packed table {name!r}: pointers not "
+                             "monotone")
+        for arr in rows:
+            if len(arr) != (int(ptr[-1]) if len(ptr) else 0):
+                raise ValueError(
+                    f"packed table {name!r}: flat rows length {len(arr)} "
+                    f"!= pointer total {int(ptr[-1]) if len(ptr) else 0}")
+        for arr in sides:
+            if len(arr) != len(ids):
+                raise ValueError(
+                    f"packed table {name!r}: side column length "
+                    f"{len(arr)} != {len(ids)} ids")
+    if tuple(trie.t_plane.shape) != (len(trie.t_ids), cfg.tele_width):
+        raise ValueError(
+            f"packed teleport plane has shape {tuple(trie.t_plane.shape)}, "
+            f"expected ({len(trie.t_ids)}, {cfg.tele_width})")
+    if len(trie.la_ptr) and trie.link_rule is not None and \
+            int(trie.la_ptr[-1]) > len(trie.link_rule):
+        raise ValueError("packed link spans exceed the link store rows")
+    if len(trie.l_ids) != len(trie.l_sid):
+        raise ValueError("packed terminal table column lengths differ")
+    widths = dict(cfg.table_widths)
+    tiered = ["c_maxscore", "c_escore", "l_sid"]
+    if cfg.use_cache:
+        tiered += ["pc_score", "pc_sid"]
+        want = (len(trie.c_ids), cfg.cache_k)
+        for name in ("pc_score", "pc_sid"):
+            arr = getattr(trie, name)
+            if arr is None or tuple(arr.shape) != want:
+                raise ValueError(
+                    f"packed cache plane {name!r} has shape "
+                    f"{None if arr is None else tuple(arr.shape)}, "
+                    f"expected {want}")
+        if len(trie.pc_base) != len(trie.c_ids):
+            raise ValueError("packed cache base column length mismatch")
+    for name in tiered:
+        arr = getattr(trie, name)
+        if name not in widths:
+            raise ValueError(
+                f"packed table {name!r} missing from the recorded dtype "
+                "tiers (cfg.table_widths)")
+        if arr is None or str(arr.dtype) != widths[name]:
+            got = None if arr is None else str(arr.dtype)
+            raise ValueError(
+                f"packed table {name!r} width mismatch: stored dtype "
+                f"{got} but cfg.table_widths records {widths[name]!r}; "
+                "rebuild the index (or re-save the container)")
+
+
 def _make_stats(spec, trie, rule_trie, n_syn, link_sel, expand_mask,
                 n_strings, seconds) -> BuildStats:
     """Byte accounting (paper Table 2 / Fig. 5 breakdown)."""
@@ -243,6 +349,30 @@ def _make_stats(spec, trie, rule_trie, n_syn, link_sel, expand_mask,
     cache_bytes = (trie.topk_score.nbytes + trie.topk_sid.nbytes
                    if trie.topk_score is not None else 0)
     syn_frac = n_syn / max(n_nodes, 1)
+    if trie.has_packed:
+        # what actually ships to the device is the packed layout + the
+        # (kept) link store + rule trie — account those, not the host-side
+        # build intermediates
+        cache_bytes = sum(
+            getattr(trie, f).nbytes for f in ("pc_score", "pc_base",
+                                              "pc_sid")
+            if getattr(trie, f) is not None)
+        link_bytes = sum(
+            getattr(trie, f).nbytes for f in ("link_rule", "link_target",
+                                              "la_ids", "la_ptr"))
+        node_edge = trie.packed_nbytes(include_cache=False) - link_bytes
+        return BuildStats(
+            kind=spec.kind, n_strings=n_strings, n_nodes=n_nodes,
+            n_syn_nodes=n_syn,
+            n_links=int(link_sel.sum()) if len(link_sel) else 0,
+            n_rules_expanded=int(expand_mask.sum()),
+            build_seconds=seconds,
+            bytes_total=trie.packed_nbytes() + rule_trie.nbytes(),
+            bytes_dict_nodes=int(node_edge * (1 - syn_frac)),
+            bytes_syn_nodes=int(node_edge * syn_frac),
+            bytes_rule_side=link_bytes + rule_trie.nbytes(),
+            bytes_cache=cache_bytes,
+        )
     return BuildStats(
         kind=spec.kind, n_strings=n_strings, n_nodes=n_nodes,
         n_syn_nodes=n_syn,

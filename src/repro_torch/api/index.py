@@ -38,12 +38,45 @@ def bucket_size(n: int, minimum: int = 8) -> int:
     return max(minimum, 1 << (n - 1).bit_length())
 
 
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``, its dtype kept (u16 tiers travel as
+    their int16 bits and are viewed back, which every device copies)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).to(device).view(
+            torch.uint16)
+    return torch.from_numpy(a).to(device)
+
+
 def _to_device(trie: tb.DictTrie, rule_trie: tb.RuleTrie,
                device: torch.device) -> DeviceTrie:
     def j(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _tensor(a, device)
 
     dummy = np.full((1, 1), -1, np.int32)
+    rule = dict(
+        r_first_child=j(rule_trie.first_child),
+        r_edge_char=j(rule_trie.edge_char),
+        r_edge_child=j(rule_trie.edge_child),
+        r_term_plane=j(rule_trie.term_plane),
+        r_rule_len=j(rule_trie.rule_len))
+    if trie.has_packed:
+        # compressed layout: only the packed side tables (their narrow
+        # dtypes kept), the link store and the rule trie go to the device;
+        # the dense tables are 0-size dummies
+        z1 = j(np.zeros(0, np.int32))
+        packed = {f: j(getattr(trie, f)) for f in tb.PACKED_ONLY_FIELDS
+                  if getattr(trie, f) is not None}
+        return DeviceTrie(
+            depth=z1, max_score=z1, leaf_score=z1, leaf_sid=z1,
+            syn_mask=j(np.zeros(0, bool)), tout=z1,
+            first_child=z1, edge_char=z1, edge_child=z1,
+            s_first_child=z1, s_edge_char=z1, s_edge_child=z1,
+            emit_ptr=z1, emit_node=z1, emit_score=z1, emit_is_leaf=z1,
+            tele_plane=j(np.zeros((0, 1), np.int32)), link_ptr=z1,
+            link_rule=j(trie.link_rule), link_target=j(trie.link_target),
+            topk_score=j(dummy), topk_sid=j(dummy), **rule, **packed)
+    has_cache = trie.topk_score is not None
     return DeviceTrie(
         depth=j(trie.depth), max_score=j(trie.max_score),
         leaf_score=j(trie.leaf_score), leaf_sid=j(trie.leaf_sid),
@@ -57,22 +90,17 @@ def _to_device(trie: tb.DictTrie, rule_trie: tb.RuleTrie,
         tele_plane=j(trie.tele_plane),
         link_ptr=j(trie.link_ptr), link_rule=j(trie.link_rule),
         link_target=j(trie.link_target),
-        r_first_child=j(rule_trie.first_child),
-        r_edge_char=j(rule_trie.edge_char),
-        r_edge_child=j(rule_trie.edge_child),
-        r_term_plane=j(rule_trie.term_plane),
-        r_rule_len=j(rule_trie.rule_len),
-        topk_score=j(dummy), topk_sid=j(dummy),
+        topk_score=j(trie.topk_score if has_cache else dummy),
+        topk_sid=j(trie.topk_sid if has_cache else dummy),
+        **rule,
     )
 
 
 def _as_port(cls, obj):
     """A port DictTrie/RuleTrie from one of the same field names (such as
-    the JAX package's numpy structures)."""
+    the JAX package's numpy structures, dense or packed)."""
     if isinstance(obj, cls):
         return obj
-    if getattr(obj, "p_labels", None) is not None:
-        raise not_ported("packed")
     names = {f.name for f in dataclasses.fields(cls)}
     return cls(**{n: getattr(obj, n) for n in names if hasattr(obj, n)})
 
@@ -110,7 +138,9 @@ class CompletionIndex:
                             spec.substrate if spec else "auto", device)
         if spec is None:
             spec = IndexSpec(frontier=cfg.frontier, gens=cfg.gens,
-                             expand=cfg.expand, max_steps=cfg.max_steps)
+                             expand=cfg.expand, max_steps=cfg.max_steps,
+                             cache_k=cfg.cache_k,
+                             compression=cfg.compression)
         validate_rule_planes(trie, rule_trie, cfg)
         return cls(spec, trie, rule_trie, list(rules), list(strings),
                    np.asarray(scores), cfg, None, device=device)

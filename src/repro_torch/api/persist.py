@@ -7,11 +7,14 @@
 index on the device.  This is the bridge that carries a built index across
 the two packages with its node ids intact.
 
-Formats 1-4 load when uncompressed (format 4 without compression is
-byte-compatible with 3); older containers have their rule planes and tile
-layout rebuilt here.  ``branch_width`` and the plane and tile widths are
-recomputed from the structures themselves.  A packed container raises.
-Saving is not ported yet.
+Formats 1-4 load, with or without a per-node top-K cache.  Older
+containers have their rule planes and tile layout rebuilt here.  A format
+4 packed container holds only the compressed side tables (u8/u16/i32
+tiers, carried over unchanged), the link store and the rule trie; a
+pre-v4 container whose spec asks for compression is packed here.
+``branch_width`` and the plane and tile widths are recomputed from the
+structures where they are there, and come from the saved config where a
+packed container elides them.  Saving is not ported yet.
 """
 
 from __future__ import annotations
@@ -45,20 +48,27 @@ def engine_config(cfg, trie: tb.DictTrie, rule_trie: tb.RuleTrie,
     and the plane and tile widths recomputed from the structures."""
     if dataclasses.is_dataclass(cfg):
         cfg = dataclasses.asdict(cfg)
-    if cfg.get("compression", "none") != "none":
-        raise not_ported("packed")
     known = {f.name for f in dataclasses.fields(EngineConfig)}
     kw = {k: v for k, v in cfg.items() if k in known}
-    kw.update(
-        substrate=resolve_substrate(substrate, device),
-        term_width=rule_trie.term_plane.shape[1],
-        branch_width=max(int(np.diff(trie.first_child).max(initial=0)), 1),
-        tele_width=trie.tele_plane.shape[1],
-        walk_tile=trie.walk_tile, emit_tile=trie.emit_tile,
-        link_tile=trie.link_tile)
+    # a JSON round trip turns the (name, dtype) pairs into lists
+    kw["table_widths"] = tuple((str(n), str(d))
+                               for n, d in kw.get("table_widths", ()))
+    kw.update(substrate=resolve_substrate(substrate, device),
+              term_width=rule_trie.term_plane.shape[1])
+    if trie.first_child is not None:
+        bw = int(np.diff(trie.first_child).max(initial=0))
+    else:
+        # packed container without the dense CSR: branch rows carry every
+        # fanout >= 2 node; any DICT_UNARY flag means fanout 1 exists
+        bw = int(np.diff(trie.b_ptr.astype(np.int64)).max(initial=0))
+        if (trie.p_flags & tb.PACK_DICT_UNARY).any():
+            bw = max(bw, 1)
+    kw["branch_width"] = max(bw, 1)
+    if trie.tele_plane is not None:
+        kw.update(tele_width=trie.tele_plane.shape[1],
+                  walk_tile=trie.walk_tile, emit_tile=trie.emit_tile,
+                  link_tile=trie.link_tile)
     out = EngineConfig(**kw)
-    if out.use_cache:
-        raise not_ported("cache")
     if out.edit_budget:
         raise not_ported("edits")
     return out
@@ -79,22 +89,17 @@ def load_index_parts(path: str, device) -> dict:
             raise ValueError(
                 f"{path}: unsupported index format version {version!r} "
                 f"(this build reads versions {_SUPPORTED_VERSIONS})")
-        if meta["spec"].get("compression", "none") != "none":
-            raise not_ported("packed")
 
         def group(prefix: str) -> dict[str, np.ndarray]:
             return {k[len(prefix):]: z[k] for k in z.files
                     if k.startswith(prefix)}
 
         trie_arrays = group("trie__")
-        if set(trie_arrays) & set(tb.PACKED_ONLY_FIELDS):
-            raise not_ported("packed")
         rt_arrays = group("rule_trie__")
         ts = meta["trie_scalars"]
-        if ts["has_cache"]:
-            raise not_ported("cache")
-        trie_arrays.pop("topk_score", None)
-        trie_arrays.pop("topk_sid", None)
+        if not ts["has_cache"]:
+            trie_arrays.pop("topk_score", None)
+            trie_arrays.pop("topk_sid", None)
         trie = tb.DictTrie(**trie_arrays,
                            max_depth=ts["max_depth"],
                            max_syn_targets=ts["max_syn_targets"],
@@ -106,6 +111,12 @@ def load_index_parts(path: str, device) -> dict:
             tb.pack_rule_planes(trie, rule_trie)
         if version < 3:   # pre-stream-layout container: re-pack the tiles
             tb.pack_stream_tiles(trie, rule_trie)
+        # a pre-v4 container whose spec asks for compression is packed here;
+        # the dtype tiers computed now replace what its metadata carried
+        repacked_widths = None
+        if meta["spec"].get("compression", "none") == "packed" \
+                and not trie.has_packed:
+            repacked_widths = tb.pack_compressed(trie)
         strings = _unpack_bytes(z["strings__blob"], z["strings__offsets"])
         scores = z["scores"]
         rules = [tb.SynonymRule(lhs, rhs) for lhs, rhs in zip(
@@ -119,6 +130,10 @@ def load_index_parts(path: str, device) -> dict:
         spec_d["substrate"] = "auto"
     spec = IndexSpec.from_dict(spec_d)
     cfg = engine_config(meta["cfg"], trie, rule_trie, spec.substrate, device)
+    if repacked_widths is not None:
+        cfg = dataclasses.replace(
+            cfg, compression="packed",
+            table_widths=tuple(sorted(repacked_widths.items())))
     validate_rule_planes(trie, rule_trie, cfg)
     known = {f.name for f in dataclasses.fields(BuildStats)}
     return {

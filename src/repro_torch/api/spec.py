@@ -1,7 +1,7 @@
 """Declarative index specification + pluggable builder registry.
 
 An :class:`IndexSpec` captures *what* index to build (kind, HT space budget,
-cache depth) and the static engine widths.  The per-kind rule-partitioning
+cache depth, on-device layout) and the static engine widths.  The per-kind rule-partitioning
 policies (``tt`` / ``et`` / ``ht`` / ``plain``) register themselves in a
 builder registry (:mod:`repro_torch.api.build`).  Options the port does
 not run yet raise ``NotImplementedError`` naming their ROADMAP item.
@@ -26,11 +26,15 @@ class IndexSpec:
     kind: "tt" (twin tries), "et" (expansion trie), "ht" (hybrid), or
         "plain" (prefix-only, no synonym support).
     alpha: HT space ratio in [0, 1] (paper Fig. 8); ignored by other kinds.
-    cache_k: materialized per-node top-K lists (only 0 is ported).
+    cache_k: materialize per-node top-K lists (0 = off; phase 2 then
+        merges them when k <= cache_k).
     frontier/gens/expand/max_steps: static engine widths.
     substrate: "torch" (plain PyTorch versions), "cuda" (hand-written
         kernels) or "auto" (cuda on a CUDA device, torch on the CPU).
-    compression: on-device layout (only "none" is ported).
+    compression: on-device layout — "none" keeps the uniform-int32
+        tables, "packed" the compressed layout (chain-collapsed sparse
+        side tables, u8/u16 tiers, a quantized cache); answers are
+        bit-identical.
     edit_budget: bounded-edit matching (only 0 is ported).
     """
 
@@ -72,12 +76,8 @@ class IndexSpec:
         if not 0 <= self.edit_budget <= 2:
             raise ValueError(
                 f"edit_budget must be in [0, 2], got {self.edit_budget}")
-        if self.cache_k > 0:
-            raise not_ported("cache")
         if self.edit_budget > 0:
             raise not_ported("edits")
-        if self.compression != "none":
-            raise not_ported("packed")
         return self
 
     def validate_sharded(self) -> "IndexSpec":

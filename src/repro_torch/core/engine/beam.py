@@ -14,12 +14,17 @@ column, which is ``lax.top_k``'s order.
 
 Exactness uses the strict admissible bound: only a dropped candidate whose
 bound strictly exceeds the final k-th score can have displaced a result.
+
+Emissions are read from the dense emission store or, on a packed index,
+through :mod:`~repro_torch.core.engine.packed` (an unstored chain node
+derives its single emission); the search itself is one code.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import (DeviceTrie, EngineConfig,
                                              INT_MAX, NEG_ONE)
 
@@ -35,6 +40,12 @@ def topk_order(vals: torch.Tensor) -> torch.Tensor:
     cols = torch.arange(vals.shape[1], dtype=torch.int64, device=vals.device)
     key = ((INT_MAX - vals.to(torch.int64)) << 31) | cols
     return torch.sort(key, dim=1).values & INT_MAX
+
+
+def is_empty(t: DeviceTrie) -> bool:
+    """An empty dictionary: no emissions anywhere, in either layout."""
+    store = t.c_enode if pk.is_packed(t) else t.emit_node
+    return int(store.shape[0]) == 0
 
 
 def check_widths(cfg: EngineConfig, f: int, k: int) -> None:
@@ -57,18 +68,30 @@ def beam_topk(t: DeviceTrie, cfg: EngineConfig, loci: torch.Tensor, k: int):
     W, P = cfg.gens, cfg.expand
     dev = loci.device
     check_widths(cfg, F, k)
-    if int(t.emit_node.shape[0]) == 0:   # empty dictionary
+    packed = pk.is_packed(t)
+    if is_empty(t):   # empty dictionary
         return (torch.full((B, k), NEG_ONE, dtype=torch.int32, device=dev),
                 torch.full((B, k), NEG_ONE, dtype=torch.int32, device=dev),
                 torch.ones(B, dtype=torch.bool, device=dev))
     e_size = int(t.emit_node.shape[0])
 
     def emit_bound(nodes, cursors):
+        if packed:
+            return pk.emit_bound(t, nodes, cursors)
         valid = nodes >= 0
         n = torch.where(valid, nodes, 0).long()
         e = t.emit_ptr[n].long() + cursors
         ok = valid & (e < t.emit_ptr[n + 1])
         return torch.where(ok, t.emit_score[e.clamp(0, e_size - 1)], NEG_ONE)
+
+    def pop(nodes, cursors):
+        if packed:
+            return pk.pop_emissions(t, nodes, cursors)
+        e = (t.emit_ptr[nodes].long() + cursors).clamp(0, e_size - 1)
+        return t.emit_node[e], t.emit_score[e], t.emit_is_leaf[e]
+
+    def sid_of(nodes):
+        return pk.leaf_sid_of(t, nodes) if packed else t.leaf_sid[nodes]
 
     gn = torch.full((B, W), NEG_ONE, dtype=torch.int32, device=dev)
     gn[:, :F] = loci
@@ -91,15 +114,13 @@ def beam_topk(t: DeviceTrie, cfg: EngineConfig, loci: torch.Tensor, k: int):
         topb = gb.gather(1, topi)
         sel_valid = topb >= 0
         sel_n = torch.where(sel_valid, gn.gather(1, topi), 0).long()
-        e = (t.emit_ptr[sel_n].long() + gc.gather(1, topi)).clamp(0, e_size - 1)
-        em_node, em_score, em_leaf = (t.emit_node[e], t.emit_score[e],
-                                      t.emit_is_leaf[e])
+        em_node, em_score, em_leaf = pop(sel_n, gc.gather(1, topi))
 
         # leaves -> result buffer (incumbents sit at lower columns)
         leaf_ok = sel_valid & em_leaf
         new_ls = torch.where(leaf_ok, em_score, NEG_ONE)
         new_li = torch.where(
-            leaf_ok, t.leaf_sid[torch.where(leaf_ok, em_node, 0).long()],
+            leaf_ok, sid_of(torch.where(leaf_ok, em_node, 0).long()),
             NEG_ONE)
         cat_s = torch.cat([ls, new_ls], dim=1)
         cat_i = torch.cat([li, new_li], dim=1)

@@ -10,12 +10,17 @@ batch dimension written out in place of ``vmap``: every function takes
 
 Overflow counts follow the reference merge for merge: each dedup that
 drops unique ids past the frontier width adds the number dropped.
+
+Every dictionary-side read goes through the dense tables or, on a packed
+index, through the accessors of :mod:`~repro_torch.core.engine.packed`;
+node ids are the same in both layouts, so are the loci and the counts.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.primitives import (csr_child_lookup, dedup_pad,
                                                 iters_for, lower_bound)
 from repro_torch.core.engine.structs import DeviceTrie, EngineConfig, NEG_ONE
@@ -28,6 +33,17 @@ calls = 0
 def _no_edits(cfg: EngineConfig) -> None:
     if cfg.edit_budget:
         raise not_ported("edits")
+
+
+def _syn_mask(t: DeviceTrie, nodes: torch.Tensor) -> torch.Tensor:
+    """bool syn mask of nodes (pre-clamped to >= 0), either layout."""
+    return pk.syn_mask_of(t, nodes) if pk.is_packed(t) else t.syn_mask[nodes]
+
+
+def _tout(t: DeviceTrie, nodes: torch.Tensor) -> torch.Tensor:
+    """Preorder subtree end of nodes (pre-clamped to >= 0), either
+    layout."""
+    return pk.tout_of(t, nodes) if pk.is_packed(t) else t.tout[nodes]
 
 
 def match_table(t: DeviceTrie, cfg: EngineConfig, qs: torch.Tensor):
@@ -74,8 +90,11 @@ def teleport_expand(t: DeviceTrie, cfg: EngineConfig, row: torch.Tensor):
                                 device=row.device)
     B, F = row.shape
     valid = row >= 0
-    tgt = t.tele_plane[torch.where(valid, row, 0).long()]
-    tgt = torch.where(valid[..., None], tgt, NEG_ONE)
+    if pk.is_packed(t):
+        tgt = pk.tele_rows(t, row)
+    else:
+        tgt = t.tele_plane[torch.where(valid, row, 0).long()]
+        tgt = torch.where(valid[..., None], tgt, NEG_ONE)
     return dedup_pad(torch.cat([row, tgt.reshape(B, -1)], dim=1), F)
 
 
@@ -89,6 +108,8 @@ def expand_frontier(t: DeviceTrie, cfg: EngineConfig, row: torch.Tensor):
 def link_lookup(t: DeviceTrie, anchors: torch.Tensor, rid: torch.Tensor):
     """Link-store search: (anchor, rule) -> target or -1.  anchors [B, F],
     rid [B]."""
+    if pk.is_packed(t):
+        return pk.link_lookup(t, anchors, rid)
     n_link = int(t.link_rule.shape[0])
     if n_link == 0:
         return torch.full_like(anchors, NEG_ONE)
@@ -107,11 +128,11 @@ def finalize_loci(t: DeviceTrie, row: torch.Tensor) -> torch.Tensor:
     """Turn expanded frontier rows [B, F] into locus antichains: drop
     mid-variant synonym nodes, dedup, and remove covered descendants."""
     F = row.shape[1]
-    is_syn = t.syn_mask[torch.where(row >= 0, row, 0).long()]
+    is_syn = _syn_mask(t, torch.where(row >= 0, row, 0).long())
     row = torch.where((row >= 0) & ~is_syn, row, NEG_ONE)
     row, _ = dedup_pad(row, F)
     live = row >= 0
-    to = t.tout[torch.where(live, row, 0).long()]
+    to = _tout(t, torch.where(live, row, 0).long())
     tin_i, tin_j = row[:, :, None], row[:, None, :]
     eye = torch.eye(F, dtype=torch.bool, device=row.device)
     covered = ((tin_j <= tin_i) & (tin_i < to[:, None, :]) & ~eye
@@ -132,9 +153,11 @@ def locus_dp(t: DeviceTrie, cfg: EngineConfig, qs: torch.Tensor,
     F = cfg.frontier
     M = cfg.rule_matches
     dev = qs.device
+    packed = pk.is_packed(t)
     d_iters = iters_for(int(t.edge_char.shape[0]))
     s_iters = iters_for(int(t.s_edge_char.shape[0]))
-    has_syn_edges = int(t.s_edge_child.shape[0]) > 0
+    has_syn_edges = (pk.has_syn_edges(t) if packed
+                     else int(t.s_edge_child.shape[0]) > 0)
     mrule, mend = match_table(t, cfg, qs)
     rows_b = torch.arange(B, device=dev)
 
@@ -147,11 +170,15 @@ def locus_dp(t: DeviceTrie, cfg: EngineConfig, qs: torch.Tensor,
     for i in range(L):
         nodes = buf[:, i]
         c = qs[:, i:i + 1]
-        parts = [buf[:, i + 1],
-                 csr_child_lookup(t.first_child, t.edge_char, t.edge_child,
-                                  nodes, c, d_iters)]
+        if packed:
+            parts = [buf[:, i + 1], pk.dict_children(t, nodes, c)]
+        else:
+            parts = [buf[:, i + 1],
+                     csr_child_lookup(t.first_child, t.edge_char,
+                                      t.edge_child, nodes, c, d_iters)]
         if has_syn_edges:
-            parts.append(csr_child_lookup(t.s_first_child, t.s_edge_char,
+            parts.append(pk.syn_children(t, nodes, c) if packed else
+                         csr_child_lookup(t.s_first_child, t.s_edge_char,
                                           t.s_edge_child, nodes, c, s_iters))
         buf[:, i + 1], drop = dedup_pad(torch.cat(parts, dim=1), F)
         overflow = overflow + drop
@@ -159,7 +186,7 @@ def locus_dp(t: DeviceTrie, cfg: EngineConfig, qs: torch.Tensor,
         # rule steps through the link store (anchors must be dict nodes)
         if M > 0:
             anchor_ok = (nodes >= 0) & \
-                ~t.syn_mask[torch.where(nodes >= 0, nodes, 0).long()]
+                ~_syn_mask(t, torch.where(nodes >= 0, nodes, 0).long())
             anchors = torch.where(anchor_ok, nodes, NEG_ONE)
             for m in range(M):
                 rid = mrule[:, i, m]

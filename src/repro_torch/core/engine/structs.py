@@ -1,7 +1,8 @@
 """Engine data structures: the device-resident trie and the static config.
 
 :class:`DeviceTrie` is the tensor encoding of a built TT/ET/HT/plain index
-in the dense layout (one NamedTuple of tensors on one device).
+(one NamedTuple of tensors on one device), in the dense layout or the
+compressed one.
 :class:`EngineConfig` holds every static shape parameter; it is frozen and
 hashable, and it names the execution ``substrate`` (see
 :mod:`repro_torch.core.engine.substrate`) the entry points dispatch through.
@@ -66,6 +67,37 @@ class DeviceTrie(NamedTuple):
     # materialized per-node top-K (dummy (1,1) when disabled)
     topk_score: torch.Tensor
     topk_sid: torch.Tensor
+    # -- compressed layout (trie_build.pack_compressed) ------------------
+    # None when compression="none"; when packed, the dense per-node arrays
+    # above are 0-size dummies and every engine read goes through these
+    # sparse, narrow-dtype side tables (repro_torch.core.engine.packed).
+    # Node ids stay logical, so results are bit-identical.
+    p_labels: torch.Tensor | None = None      # u8[N]
+    p_flags: torch.Tensor | None = None       # u8[N]
+    c_ids: torch.Tensor | None = None         # i32[C]
+    c_tout: torch.Tensor | None = None        # i32[C]
+    c_maxscore: torch.Tensor | None = None    # u16/i32[C]
+    c_eptr: torch.Tensor | None = None        # i32[C+1]
+    c_enode: torch.Tensor | None = None       # i32[Me]
+    c_escore: torch.Tensor | None = None      # u16/i32[Me]
+    c_eleaf: torch.Tensor | None = None       # u8[Me]
+    b_ids: torch.Tensor | None = None         # i32[B]
+    b_ptr: torch.Tensor | None = None         # i32[B+1]
+    b_char: torch.Tensor | None = None        # u8[Eb]
+    b_child: torch.Tensor | None = None       # i32[Eb]
+    sb_ids: torch.Tensor | None = None        # i32[Sb]
+    sb_ptr: torch.Tensor | None = None        # i32[Sb+1]
+    sb_char: torch.Tensor | None = None       # u8[Esb]
+    sb_child: torch.Tensor | None = None      # i32[Esb]
+    l_ids: torch.Tensor | None = None         # i32[S]
+    l_sid: torch.Tensor | None = None         # u16/i32[S]
+    t_ids: torch.Tensor | None = None         # i32[Tn]
+    t_plane: torch.Tensor | None = None       # i32[Tn, tele_width]
+    la_ids: torch.Tensor | None = None        # i32[La]
+    la_ptr: torch.Tensor | None = None        # i32[La+1]
+    pc_score: torch.Tensor | None = None      # u16/i32[C, K]
+    pc_base: torch.Tensor | None = None       # i32[C]
+    pc_sid: torch.Tensor | None = None        # u16/i32[C, K]
 
 
 @dataclass(frozen=True)
@@ -94,4 +126,8 @@ class EngineConfig:
     use_cache: bool = False     # phase 2 via materialized top-K
     cache_k: int = 0
     substrate: str = "torch"    # execution substrate ("torch" | "cuda")
+    # on-device layout: "none" keeps the uniform-i32 tables, "packed" the
+    # compressed ones; table_widths records the dtype tier of each
+    # tier-variable packed table as a sorted (name, dtype) tuple
     compression: str = "none"
+    table_widths: tuple = ()

@@ -1,16 +1,25 @@
 """Execution substrates + the public completion entry points.
 
-A :class:`Substrate` bundles the engine's two batched phases behind one
-seam: ``walk_batch`` (phase 1, query batch -> locus antichains + overflow
-counts) and ``beam_topk_batch`` (phase 2, loci -> top-k + exact flags).
+A substrate bundles the engine's batched hot primitives behind one seam:
+
+- ``walk_batch`` — phase 1, query batch -> locus antichains + overflow
+  counts;
+- ``topk_with_payload`` — top-k select with a payload, ties to the lower
+  candidate index;
+- ``cached_topk_batch`` — the cached phase 2 (per-node top-K gather +
+  merge), when the index carries a cache and k fits it;
+- ``beam_topk_batch`` — the beam phase 2 otherwise.
 
 - :class:`TorchSubstrate` (``"torch"``) is the plain PyTorch reference:
-  the frontier DP of :mod:`~repro_torch.core.engine.locus` for every kind
-  and the batched priority search of :mod:`~repro_torch.core.engine.beam`.
+  the frontier DP of :mod:`~repro_torch.core.engine.locus` for every kind,
+  the cached merge of :mod:`~repro_torch.core.engine.cached` and the
+  batched priority search of :mod:`~repro_torch.core.engine.beam`.
 - :class:`CudaSubstrate` (``"cuda"``) routes the same phases through the
   hand-written kernels of :mod:`repro_torch.kernels`: the longest-prefix
-  walk for rule-free tries, the fused locus DP for tt/et/ht, and the fused
-  beam search.  It never falls back to the plain versions: a kernel that
+  walk for dense rule-free tries, the fused locus DP for everything else
+  (dense tt/et/ht and every packed index), the fused beam search, the
+  top-k select and the cached merge, each reading the dense or the packed
+  layout.  It never falls back to the plain versions: a kernel that
   cannot take a shape raises.  (The kernel wrappers answer CPU tensors
   with their plain versions, so the routing itself runs under the CPU
   tests.)
@@ -23,14 +32,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.engine import beam, locus
+from repro_torch.core.engine import beam, cached, locus
+from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import DeviceTrie, EngineConfig, NEG_ONE
-from repro_torch.not_ported import not_ported
-
-
-def _no_cache(cfg: EngineConfig) -> None:
-    if cfg.use_cache:
-        raise not_ported("cache")
 
 
 class TorchSubstrate:
@@ -46,6 +50,20 @@ class TorchSubstrate:
     def beam_topk_batch(self, t: DeviceTrie, cfg: EngineConfig, loci, k: int):
         """(scores[B, k], sids[B, k], exact[B])."""
         return beam.beam_topk(t, cfg, loci, k)
+
+    def topk_with_payload(self, scores, payload, k: int):
+        """scores/payload int32[B, C] -> (top_s[B, k], top_p[B, k]),
+        score-descending, ties toward the lower candidate index."""
+        return cached.select_topk(scores, payload, k)
+
+    def cached_topk_batch(self, t: DeviceTrie, cfg: EngineConfig, loci,
+                          k: int):
+        """Cached-top-K gather + merge: loci int32[B, F] ->
+        (scores[B, k], sids[B, k], exact[B])."""
+        _check_cache(cfg, k)
+        s, p = cached.cached_topk(t, loci, k)
+        return s, p, torch.ones(loci.shape[0], dtype=torch.bool,
+                                device=loci.device)
 
 
 class CudaSubstrate(TorchSubstrate):
@@ -65,7 +83,9 @@ class CudaSubstrate(TorchSubstrate):
     def walk_batch(self, t, cfg, qs, qlens):
         from repro_torch.kernels import locus_dp, trie_walk
 
-        if not self._rule_free(t, cfg):
+        # a packed index elides the dense CSR the prefix walk reads, so it
+        # always takes the locus DP (as the JAX package's pallas substrate)
+        if pk.is_packed(t) or not self._rule_free(t, cfg):
             return locus_dp.locus_dp_walk(t, cfg, qs, qlens)
         node, depth = trie_walk.trie_walk(t.first_child, t.edge_char,
                                           t.edge_child, qs, qlens)
@@ -80,6 +100,26 @@ class CudaSubstrate(TorchSubstrate):
         from repro_torch.kernels import beam_topk
 
         return beam_topk.beam_topk_batch(t, cfg, loci, k)
+
+    def topk_with_payload(self, scores, payload, k):
+        from repro_torch.kernels import topk_select
+
+        return topk_select.topk_select(scores, payload, k)
+
+    def cached_topk_batch(self, t, cfg, loci, k):
+        from repro_torch.kernels import locus_merge
+
+        _check_cache(cfg, k)
+        exact = torch.ones(loci.shape[0], dtype=torch.bool,
+                           device=loci.device)
+        if not pk.is_packed(t) and self._rule_free(t, cfg):
+            # single-locus rows: merging reduces to selecting from the
+            # node's own (sorted) top-K list
+            sc, si = cached.gather_cached(t, loci[:, :1])
+            s, p = self.topk_with_payload(sc, si, k)
+            return s, p, exact
+        s, p = locus_merge.locus_topk_merge(t, loci, k)
+        return s, p, exact
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +156,18 @@ def resolve_substrate(name: str, device) -> str:
 # ---------------------------------------------------------------------------
 
 
+def _check_cache(cfg: EngineConfig, k: int) -> None:
+    if not (cfg.use_cache and k <= cfg.cache_k):
+        raise ValueError(f"cached phase 2 needs use_cache and k <= cache_k; "
+                         f"got use_cache={cfg.use_cache}, k={k}, "
+                         f"cache_k={cfg.cache_k}")
+
+
 def _phase2_batch(t, cfg, loci, k, sub):
-    """Phase-2 dispatch: the beam search (the cached merge is not ported)."""
-    _no_cache(cfg)
+    """Phase-2 dispatch: the cached merge when materialized and k fits,
+    else the beam."""
+    if cfg.use_cache and k <= cfg.cache_k:
+        return sub.cached_topk_batch(t, cfg, loci, k)
     return sub.beam_topk_batch(t, cfg, loci, k)
 
 

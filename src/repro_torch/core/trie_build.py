@@ -13,10 +13,10 @@ The paper's pointer tries become structure-of-arrays tries:
 Construction is offline/host-side (like data loading in a training job);
 lookup runs on device from these arrays alone.
 
-A copy of ``repro.core.trie_build`` (the dense layout only): the arrays it
-builds are bit-identical to the JAX package's, which keeps node ids — and
-so every locus, overflow count and result — comparable across the two.
-The compressed layout (``pack_compressed``) is not ported yet.
+A copy of ``repro.core.trie_build``: the arrays it builds, dense and
+compressed (``pack_compressed``), are bit-identical to the JAX package's,
+which keeps node ids — and so every locus, overflow count and result —
+comparable across the two.
 """
 
 from __future__ import annotations
@@ -30,8 +30,14 @@ from repro_torch.core.alphabet import SIGMA
 
 ROOT = 0
 
-# fields of the compressed layout; a container holding any of them was
-# saved with compression="packed", which the port does not read yet
+# p_flags bits of the compressed layout (see pack_compressed)
+PACK_DICT_UNARY = 1   # exactly one dict child, and it is v + 1
+PACK_SYN_UNARY = 2    # exactly one syn child, and it is v + 1
+PACK_IS_SYN = 4       # pure synonym node (== syn_mask)
+PACK_HAS_LEAF = 8     # terminal node (leaf_score >= 0)
+
+# fields that exist only in the compressed layout / that a packed (format
+# v4) container keeps from the uncompressed layout
 PACKED_ONLY_FIELDS = (
     "p_labels", "p_flags",
     "c_ids", "c_tout", "c_maxscore", "c_eptr", "c_enode", "c_escore",
@@ -41,6 +47,7 @@ PACKED_ONLY_FIELDS = (
     "l_ids", "l_sid", "t_ids", "t_plane", "la_ids", "la_ptr",
     "pc_score", "pc_base", "pc_sid",
 )
+PACKED_KEEP_FIELDS = ("link_rule", "link_target")
 
 
 # ---------------------------------------------------------------------------
@@ -77,10 +84,13 @@ def make_rules(pairs) -> list[SynonymRule]:
 
 @dataclass
 class DictTrie:
-    """Array-encoded dictionary trie (+ synonym structures), dense layout.
+    """Array-encoded dictionary trie (+ synonym structures).
 
-    Every field defaults to ``None`` so a container's arrays round-trip
-    through ``DictTrie(**saved_arrays)``; builders populate them all.
+    Every field is optional with a ``None`` default so that a
+    ``compression="packed"`` container (format v4) — which persists only
+    the compressed side tables plus the link store — can round-trip
+    through ``DictTrie(**saved_arrays)``; builders always populate the
+    uncompressed fields.
     """
 
     # per-node
@@ -137,13 +147,49 @@ class DictTrie:
     topk_score: np.ndarray | None = None  # int32[N, K]
     topk_sid: np.ndarray | None = None    # int32[N, K]
 
+    # compressed on-device layout (see pack_compressed): logical node ids
+    # unchanged, per-node data chain-collapsed into sparse side tables at
+    # the stored (chain-representative) nodes; None until packed
+    p_labels: np.ndarray | None = None    # u8[N]  incoming-edge byte (root 0)
+    p_flags: np.ndarray | None = None     # u8[N]  PACK_* bits
+    c_ids: np.ndarray | None = None       # i32[C] stored dict nodes, sorted
+    c_tout: np.ndarray | None = None      # i32[C]
+    c_maxscore: np.ndarray | None = None  # u16/i32[C]
+    c_eptr: np.ndarray | None = None      # i32[C+1] emission spans
+    c_enode: np.ndarray | None = None     # i32[Me]
+    c_escore: np.ndarray | None = None    # u16/i32[Me]
+    c_eleaf: np.ndarray | None = None     # u8[Me]
+    b_ids: np.ndarray | None = None       # i32[B]  dict fanout >= 2, sorted
+    b_ptr: np.ndarray | None = None       # i32[B+1]
+    b_char: np.ndarray | None = None      # u8[Eb]
+    b_child: np.ndarray | None = None     # i32[Eb]
+    sb_ids: np.ndarray | None = None      # i32[Sb] non-unary syn rows, sorted
+    sb_ptr: np.ndarray | None = None      # i32[Sb+1]
+    sb_char: np.ndarray | None = None     # u8[Esb]
+    sb_child: np.ndarray | None = None    # i32[Esb]
+    l_ids: np.ndarray | None = None       # i32[S]  terminal nodes, sorted
+    l_sid: np.ndarray | None = None       # u16/i32[S]
+    t_ids: np.ndarray | None = None       # i32[Tn] teleport-bearing, sorted
+    t_plane: np.ndarray | None = None     # i32[Tn, tele_width], -1 pad
+    la_ids: np.ndarray | None = None      # i32[La] link anchors, sorted
+    la_ptr: np.ndarray | None = None      # i32[La+1] spans into link_rule
+    pc_score: np.ndarray | None = None    # u16/i32[C, K] (+1-biased if u16)
+    pc_base: np.ndarray | None = None     # i32[C] per-row score base
+    pc_sid: np.ndarray | None = None      # u16/i32[C, K] (+1-biased if u16)
+
     # static metadata
     max_depth: int = 0
     max_syn_targets: int = 0
 
     @property
+    def has_packed(self) -> bool:
+        return self.p_labels is not None
+
+    @property
     def n_nodes(self) -> int:
-        return len(self.parent)
+        if self.parent is not None:
+            return len(self.parent)
+        return len(self.p_labels)
 
     @property
     def n_edges(self) -> int:
@@ -155,6 +201,18 @@ class DictTrie:
             v = getattr(self, f.name)
             if isinstance(v, np.ndarray):
                 if not include_cache and f.name.startswith("topk_"):
+                    continue
+                total += v.nbytes
+        return total
+
+    def packed_nbytes(self, include_cache: bool = True) -> int:
+        """Device bytes of the compressed layout alone (what a packed
+        container persists and what the device holds)."""
+        total = 0
+        for name in PACKED_ONLY_FIELDS + PACKED_KEEP_FIELDS:
+            v = getattr(self, name)
+            if isinstance(v, np.ndarray):
+                if not include_cache and name.startswith("pc_"):
                     continue
                 total += v.nbytes
         return total
@@ -799,3 +857,189 @@ def build_topk_cache(trie: DictTrie, k: int) -> None:
             sid[pj] = cat_sid[rows, top]
     trie.topk_score = score
     trie.topk_sid = sid
+
+
+# ---------------------------------------------------------------------------
+# Compressed on-device layout (format v4, IndexSpec.compression="packed")
+# ---------------------------------------------------------------------------
+
+
+def _tier_u16(arr: np.ndarray) -> np.ndarray:
+    """Narrowest dtype tier for a non-negative value table: u16 when every
+    value fits, i32 otherwise (the device widens back to i32 in-register,
+    so the choice is lossless either way)."""
+    a = np.asarray(arr)
+    if a.size == 0 or (int(a.min()) >= 0 and int(a.max()) <= 0xFFFF):
+        return a.astype(np.uint16)
+    return a.astype(np.int32)
+
+
+def _csr_select(ptr: np.ndarray, rows: np.ndarray):
+    """Compact the CSR rows ``rows`` (ascending) of a ``ptr``-indexed flat
+    table: returns (new_ptr int32[len(rows)+1], take int64[...]) where
+    ``take`` indexes the surviving entries of the flat arrays."""
+    lo = ptr[rows].astype(np.int64)
+    cnt = (ptr[rows + 1] - ptr[rows]).astype(np.int64)
+    new_ptr = np.concatenate([[0], np.cumsum(cnt)]).astype(np.int32)
+    total = int(cnt.sum())
+    take = np.repeat(lo, cnt) + (
+        np.arange(total, dtype=np.int64)
+        - np.repeat(new_ptr[:-1].astype(np.int64), cnt))
+    return new_ptr, take
+
+
+def pack_compressed(trie: DictTrie) -> dict[str, str]:
+    """Build the compressed on-device layout (persisted as format v4).
+
+    Logical node ids are *unchanged* — loci, overflow counts and every
+    downstream result stay bit-identical to the uncompressed layout.  The
+    space comes from three sources:
+
+    - **chain collapse**: dictionary nodes are created in DFS preorder,
+      so a unary non-terminal node ``v`` has its single child at
+      ``v + 1``, and its ``tout`` / ``max_score`` / emission list / top-K
+      cache row are all equal to that child's (verified below, not
+      assumed).  Per-node data is therefore stored only at *stored*
+      nodes (fanout != 1, terminals, plus any verification stragglers);
+      everything else derives from the next stored id — one binary
+      search over ``c_ids``.  The only dense [N] arrays left are the u8
+      ``p_labels`` / ``p_flags``.
+    - **empty-plane elision**: teleports and link anchors become sparse
+      id-keyed tables (``t_ids``/``t_plane``, ``la_ids``/``la_ptr``)
+      that vanish for rule-free tries instead of dense [N]-row planes.
+    - **narrow dtype tiers**: labels/flags/chars are u8; scores, string
+      ids and the quantized top-K cache drop to u16 when every value
+      fits (cache scores as ``base + enc - 1`` with a per-row i32 base,
+      ``enc == 0`` meaning empty — lossless by the tier condition).
+
+    Returns the ``{table: dtype}`` width map for the tier-variable tables
+    (recorded as ``EngineConfig.table_widths`` so compiled entry points
+    re-key when a rebuild lands in a different tier).  Requires
+    ``pack_rule_planes`` (for ``link_ptr``).
+    """
+    assert trie.link_ptr is not None, \
+        "pack_compressed requires pack_rule_planes to have run"
+    n = trie.n_nodes
+    ids = np.arange(n, dtype=np.int64)
+    syn = trie.syn_mask
+    leaf = trie.leaf_score >= 0
+    d_cnt = np.diff(trie.first_child)
+    s_cnt = np.diff(trie.s_first_child)
+
+    # labels / flags: the two dense per-node arrays of the layout
+    labels = trie.chr_.copy()
+    labels[ROOT] = 0                  # no incoming edge; slot never read
+    trie.p_labels = labels.astype(np.uint8)
+
+    d_unary = d_cnt == 1
+    if d_unary.any():
+        first = trie.edge_child[trie.first_child[:-1][d_unary]]
+        assert (first == ids[d_unary] + 1).all(), \
+            "preorder invariant broken: unary dict child is not v+1"
+    s_child0 = np.full(n, -1, np.int64)
+    if len(trie.s_edge_child):
+        has_s = s_cnt > 0
+        s_child0[has_s] = trie.s_edge_child[trie.s_first_child[:-1][has_s]]
+    s_unary = (s_cnt == 1) & (s_child0 == ids + 1)
+    trie.p_flags = (
+        d_unary.astype(np.uint8) * PACK_DICT_UNARY
+        | s_unary.astype(np.uint8) * PACK_SYN_UNARY
+        | syn.astype(np.uint8) * PACK_IS_SYN
+        | leaf.astype(np.uint8) * PACK_HAS_LEAF)
+
+    # stored (chain-representative) dict nodes.  An unstored node derives
+    # every per-node value from the next stored id; the loop *verifies*
+    # the chain-constancy invariants and promotes any node that breaks
+    # them, so correctness never rests on the preorder argument alone.
+    is_dict = ~syn
+    stored = is_dict & (~d_unary | leaf)
+    e_size = max(len(trie.emit_node), 1)
+    while True:
+        stored_ids = np.nonzero(stored)[0]
+        u = ids[is_dict & ~stored]
+        if len(u) == 0:
+            break
+        rep = stored_ids[np.searchsorted(stored_ids, u)]
+        e0 = np.minimum(trie.emit_ptr[u].astype(np.int64), e_size - 1)
+        ok = ((trie.tout[u] == trie.tout[rep])
+              & (trie.max_score[u] == trie.max_score[rep])
+              & ((trie.emit_ptr[u + 1] - trie.emit_ptr[u]) == 1)
+              & (trie.emit_node[e0] == u + 1)
+              & (trie.emit_score[e0] == trie.max_score[u])
+              & ~trie.emit_is_leaf[e0])
+        if trie.topk_score is not None:
+            ok &= (trie.topk_score[u] == trie.topk_score[rep]).all(axis=1)
+            ok &= (trie.topk_sid[u] == trie.topk_sid[rep]).all(axis=1)
+        if ok.all():
+            break
+        stored[u[~ok]] = True
+
+    c_ids = np.nonzero(stored)[0].astype(np.int64)
+    trie.c_ids = c_ids.astype(np.int32)
+    trie.c_tout = trie.tout[c_ids].astype(np.int32)
+    trie.c_maxscore = _tier_u16(trie.max_score[c_ids])
+    trie.c_eptr, take = _csr_select(trie.emit_ptr, c_ids)
+    trie.c_enode = trie.emit_node[take].astype(np.int32)
+    trie.c_escore = _tier_u16(trie.emit_score[take])
+    trie.c_eleaf = trie.emit_is_leaf[take].astype(np.uint8)
+
+    # dict branch rows (fanout >= 2) and non-unary syn rows as sparse CSRs
+    b_ids = np.nonzero(d_cnt >= 2)[0]
+    trie.b_ids = b_ids.astype(np.int32)
+    trie.b_ptr, take = _csr_select(trie.first_child, b_ids)
+    trie.b_char = trie.edge_char[take].astype(np.uint8)
+    trie.b_child = trie.edge_child[take].astype(np.int32)
+    sb_ids = np.nonzero((s_cnt >= 2) | ((s_cnt == 1) & ~s_unary))[0]
+    trie.sb_ids = sb_ids.astype(np.int32)
+    trie.sb_ptr, take = _csr_select(trie.s_first_child, sb_ids)
+    trie.sb_char = trie.s_edge_char[take].astype(np.uint8)
+    trie.sb_child = trie.s_edge_child[take].astype(np.int32)
+
+    # terminal data: exact binary search over l_ids at query time
+    l_ids = np.nonzero(leaf)[0]
+    trie.l_ids = l_ids.astype(np.int32)
+    trie.l_sid = _tier_u16(trie.leaf_sid[l_ids])
+
+    # sparse teleport plane and link-anchor spans (empty-plane elision)
+    t_ids = np.nonzero(np.diff(trie.syn_ptr) > 0)[0]
+    trie.t_ids = t_ids.astype(np.int32)
+    tw = max(trie.max_syn_targets, 1)
+    t_ptr, take = _csr_select(trie.syn_ptr, t_ids)
+    plane = np.full((len(t_ids), tw), -1, np.int32)
+    if len(take):
+        rows = np.repeat(np.arange(len(t_ids), dtype=np.int64),
+                         np.diff(t_ptr))
+        cols = np.arange(len(take), dtype=np.int64) - np.repeat(
+            t_ptr[:-1].astype(np.int64), np.diff(t_ptr))
+        plane[rows, cols] = trie.syn_tgt[take]
+    trie.t_plane = plane
+    la_ids = np.nonzero(np.diff(trie.link_ptr) > 0)[0]
+    trie.la_ids = la_ids.astype(np.int32)
+    trie.la_ptr = np.append(trie.link_ptr[la_ids],
+                            trie.link_ptr[-1]).astype(np.int32)
+
+    # quantized top-K cache: u16 (base + enc - 1, enc 0 = empty) when the
+    # whole table fits the tier, raw i32 rows otherwise
+    if trie.topk_score is not None:
+        cs = trie.topk_score[c_ids]
+        ci = trie.topk_sid[c_ids]
+        real = cs >= 0
+        row_min = np.where(real, cs, np.iinfo(np.int32).max).min(
+            axis=1, initial=np.iinfo(np.int32).max)
+        base = np.where(real.any(axis=1), row_min, 0).astype(np.int32)
+        enc = np.where(real, cs.astype(np.int64) - base[:, None] + 1, 0)
+        trie.pc_score = (enc.astype(np.uint16)
+                         if enc.size == 0 or int(enc.max()) <= 0xFFFF
+                         else cs.astype(np.int32))
+        trie.pc_base = base
+        enc_i = np.where(ci >= 0, ci.astype(np.int64) + 1, 0)
+        trie.pc_sid = (enc_i.astype(np.uint16)
+                       if enc_i.size == 0 or int(enc_i.max()) <= 0xFFFF
+                       else ci.astype(np.int32))
+
+    widths = {name: str(getattr(trie, name).dtype)
+              for name in ("c_maxscore", "c_escore", "l_sid")}
+    if trie.pc_score is not None:
+        widths["pc_score"] = str(trie.pc_score.dtype)
+        widths["pc_sid"] = str(trie.pc_sid.dtype)
+    return widths

@@ -7,8 +7,8 @@ returns ``cudaGetLastError()``, and :func:`check_launch` raises when that
 is not 0.  Builds happen at first use, from the sources in this checkout
 only, into ``build/repro_torch_kernels/`` at the repository root (one
 ``nvcc`` per source, all started together).  A library is named by a hash
-of its source and flags, so an edited source is rebuilt and a built one is
-reused.  There is no fallback: a missing ``nvcc`` or a failed build raises.
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and a built one is reused.  There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("trie_walk", "locus_dp", "beam_topk")
+SOURCES = ("trie_walk", "locus_dp", "beam_topk", "topk_select",
+           "locus_merge")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -106,20 +108,41 @@ def check_launch(name: str, err: int) -> None:
                            f"({msg.decode()})")
 
 
-def check_tensors(name: str, device: torch.device, **tensors) -> None:
-    """Every tensor on ``device`` (a CUDA device) and contiguous; int32
-    unless it is bool."""
+#: the element types a kernel reads: int32 tables and bool flags, and in
+#: the packed layout u8 planes and u16 tiers
+DENSE_DTYPES = (torch.int32, torch.bool)
+PACKED_DTYPES = DENSE_DTYPES + (torch.uint8, torch.uint16)
+
+
+def check_tensors(name: str, device: torch.device, dtypes=DENSE_DTYPES,
+                  **tensors) -> None:
+    """Every tensor on ``device`` (a CUDA device), contiguous, and of one
+    of ``dtypes`` (int32 or bool unless the wrapper reads narrow tiers,
+    whose per-table types it checks itself)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: tensors on {device} have no kernel")
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected "
                              f"{device}")
-        if t.dtype not in (torch.int32, torch.bool):
+        if t.dtype not in dtypes:
             raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected "
-                            "int32 (or bool)")
+                            f"one of {dtypes}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def check_dtype(name: str, arg: str, t: torch.Tensor, *dtypes) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected one "
+                        f"of {dtypes}")
+
+
+def is_u16(name: str, arg: str, t: torch.Tensor) -> int:
+    """The dtype tier of a tier-variable packed table as the kernels take
+    it: 1 for u16, 0 for int32; any other type raises."""
+    check_dtype(name, arg, t, torch.uint16, torch.int32)
+    return int(t.dtype == torch.uint16)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,10 +1,23 @@
 // Fused beam phase 2 (generator-pool priority search) on Hopper (sm_90a).
 //
 // Replaces the Pallas kernels repro/kernels/beam_topk.py:413
-// `beam_topk_batch` (emission tables resident in VMEM) and :463
-// `beam_topk_batch_streamed` (tables in HBM behind windowed DMA): on the
-// card the emission tables sit in device memory and this one kernel reads
-// them there, whatever their size.
+// `beam_topk_batch` (emission tables resident in VMEM), :463
+// `beam_topk_batch_streamed` (tables in HBM behind windowed DMA) and :440
+// `beam_topk_batch_packed` (the compressed layout's emission store): on
+// the card the emission tables sit in device memory and this one kernel
+// reads them there, whatever their size.
+//
+// The search is written once, templated on its emission accessor — the
+// seam of the Pallas kernels' `_ResidentEmit` / `_PackedEmit`:
+//   - DenseEmit reads emit_ptr / emit_node / emit_score / emit_is_leaf and
+//     leaf_sid;
+//   - PackedEmit reads the chain-collapsed store: a stored node (a c_ids
+//     entry) reads its emission row at its rank; an unstored, non-synonym
+//     node has exactly one emission, (v+1, max_score of its chain
+//     representative, not a leaf), at cursor 0; a leaf's string id comes
+//     from a rank lookup into l_ids.  The u16 / i32 tiers of c_escore,
+//     c_maxscore and l_sid widen to int at the load.
+// Scores, sids and `exact` are therefore bit-identical across layouts.
 //
 // One thread block per query.  The pool (node `gn`, emission cursor `gc`,
 // admissible bound `gb`; width W), the result heap (k) and `dropped_max`
@@ -28,7 +41,11 @@
 // two of its own width (W + P for the pool, k + P for the heap).
 #include <cuda_runtime.h>
 
+#include "tables.cuh"
+
 namespace {
+
+using tables::load_tier;
 
 typedef unsigned long long u64;
 constexpr int kIntMax = 2147483647;
@@ -67,15 +84,89 @@ __device__ void bitonic_sort(u64* a, int n) {
   }
 }
 
-// Admissible bound of a generator: the score of its current emission, or
-// -1 when the node is dead or the cursor ran off its emission list.
-__device__ __forceinline__ int emit_bound(const int* __restrict__ emit_ptr,
-                                          const int* __restrict__ emit_score,
-                                          int node, int cursor) {
-  if (node < 0) return -1;
-  const int e = emit_ptr[node] + cursor;
-  return e < emit_ptr[node + 1] ? emit_score[e] : -1;
-}
+// Emission reads of the uniform int32 layout.
+struct DenseEmit {
+  const int* emit_ptr;
+  const int* emit_node;
+  const int* emit_score;
+  const unsigned char* emit_leaf;
+  const int* leaf_sid;
+
+  // Admissible bound of a generator: the score of its current emission,
+  // or -1 when the node is dead or the cursor ran off its emission list.
+  __device__ int bound(int node, int cursor) const {
+    if (node < 0) return -1;
+    const int e = emit_ptr[node] + cursor;
+    return e < emit_ptr[node + 1] ? emit_score[e] : -1;
+  }
+  // The current emission of a live generator (its cursor is in-row).
+  __device__ void pop(int node, int cursor, int& en, int& score,
+                      bool& leaf) const {
+    const int e = emit_ptr[node] + cursor;
+    en = emit_node[e];
+    score = emit_score[e];
+    leaf = emit_leaf[e] != 0;
+  }
+  __device__ int sid(int leaf_node) const { return leaf_sid[leaf_node]; }
+};
+
+// Emission reads of the compressed layout (trie_build.pack_compressed).
+struct PackedEmit {
+  const unsigned char* flags;
+  const int* c_ids;
+  int n_c;
+  const int* eptr;
+  const int* enode;
+  const void* escore;
+  int escore_u16;
+  const unsigned char* eleaf;
+  const void* maxscore;
+  int maxscore_u16;
+  const int* l_ids;
+  int n_l;
+  const void* l_sid;
+  int l_sid_u16;
+
+  // the clipped rank of node's chain representative in c_ids; `stored`
+  // when node is itself a c_ids entry
+  __device__ int rep(int node, bool& stored) const {
+    const int rc = tables::rep_rank(c_ids, n_c, node);
+    stored = c_ids[rc] == node;
+    return rc;
+  }
+  __device__ int bound(int node, int cursor) const {
+    if (node < 0) return -1;
+    bool stored;
+    const int rc = rep(node, stored);
+    if (stored) {
+      const int e = eptr[rc] + cursor;
+      return e < eptr[rc + 1] ? load_tier(escore, e, escore_u16) : -1;
+    }
+    if (!(flags[node] & tables::kIsSyn) && cursor == 0) {
+      return load_tier(maxscore, rc, maxscore_u16);
+    }
+    return -1;
+  }
+  __device__ void pop(int node, int cursor, int& en, int& score,
+                      bool& leaf) const {
+    bool stored;
+    const int rc = rep(node, stored);
+    if (stored) {
+      const int e = eptr[rc] + cursor;
+      en = enode[e];
+      score = load_tier(escore, e, escore_u16);
+      leaf = eleaf[e] != 0;
+    } else {   // the derived emission of a chain node
+      en = node + 1;
+      score = load_tier(maxscore, rc, maxscore_u16);
+      leaf = false;
+    }
+  }
+  __device__ int sid(int leaf_node) const {
+    return load_tier(l_sid, tables::rep_rank(l_ids, n_l, leaf_node),
+                     l_sid_u16);
+  }
+};
 
 // Max of vals[0, n) (all >= -1) into every thread.
 __device__ int block_max(const int* vals, int n, int* slot) {
@@ -90,12 +181,9 @@ __device__ int block_max(const int* vals, int n, int* slot) {
   return out;
 }
 
-__global__ void beam_topk_kernel(const int* __restrict__ emit_ptr,
-                                 const int* __restrict__ emit_node,
-                                 const int* __restrict__ emit_score,
-                                 const unsigned char* __restrict__ emit_leaf,
-                                 const int* __restrict__ leaf_sid,
-                                 const int* __restrict__ loci, int F, int W,
+template <class E>
+__global__ void beam_topk_kernel(E em, const int* __restrict__ loci, int F,
+                                 int W,
                                  int P, int k, int max_steps, int key_cap,
                                  int* __restrict__ out_scores,
                                  int* __restrict__ out_sids,
@@ -120,7 +208,7 @@ __global__ void beam_topk_kernel(const int* __restrict__ emit_ptr,
   const int b = blockIdx.x;
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
     const int n = j < F ? loci[(long long)b * F + j] : -1;
-    const int bound = emit_bound(emit_ptr, emit_score, n, 0);
+    const int bound = em.bound(n, 0);
     gn[j] = bound >= 0 ? n : -1;
     gc[j] = 0;
     gb[j] = bound;
@@ -154,13 +242,15 @@ __global__ void beam_topk_kernel(const int* __restrict__ emit_ptr,
       int leaf_i = -1;
       const bool valid = gb[col] >= 0;
       if (valid) {
-        const int e = emit_ptr[gn[col]] + gc[col];
-        const int en = emit_node[e];
-        if (emit_leaf[e]) {
-          leaf_s = emit_score[e];
-          leaf_i = leaf_sid[en];
+        int en;
+        int sc;
+        bool lf;
+        em.pop(gn[col], gc[col], en, sc, lf);
+        if (lf) {
+          leaf_s = sc;
+          leaf_i = em.sid(en);
         } else {
-          new_b = emit_bound(emit_ptr, emit_score, en, 0);
+          new_b = em.bound(en, 0);
           new_n = new_b >= 0 ? en : -1;
         }
       }
@@ -188,7 +278,7 @@ __global__ void beam_topk_kernel(const int* __restrict__ emit_ptr,
     }
     __syncthreads();
     for (int j = threadIdx.x; j < W; j += blockDim.x) {
-      const int bound = emit_bound(emit_ptr, emit_score, gn[j], pool_c[j]);
+      const int bound = em.bound(gn[j], pool_c[j]);
       pool_b[j] = bound;
       pool_n[j] = bound >= 0 ? gn[j] : -1;
     }
@@ -233,6 +323,24 @@ __global__ void beam_topk_kernel(const int* __restrict__ emit_ptr,
   }
 }
 
+template <class E>
+int launch(const E& em, const void* loci, int batch, int frontier, int gens,
+           int expand, int k, int max_steps, int key_cap, int threads,
+           int shared_bytes, void* out_scores, void* out_sids,
+           void* out_exact, void* stream) {
+  if (batch > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        beam_topk_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    beam_topk_kernel<E><<<batch, threads, shared_bytes,
+                          (cudaStream_t)stream>>>(
+        em, (const int*)loci, frontier, gens, expand, k, max_steps, key_cap,
+        (int*)out_scores, (int*)out_sids, (unsigned char*)out_exact);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int beam_topk_launch(const void* emit_ptr, const void* emit_node,
@@ -243,18 +351,43 @@ extern "C" int beam_topk_launch(const void* emit_ptr, const void* emit_node,
                                 int threads, int shared_bytes,
                                 void* out_scores, void* out_sids,
                                 void* out_exact, void* stream) {
-  if (batch > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        beam_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared_bytes);
-    if (err != cudaSuccess) return (int)err;
-    beam_topk_kernel<<<batch, threads, shared_bytes, (cudaStream_t)stream>>>(
-        (const int*)emit_ptr, (const int*)emit_node, (const int*)emit_score,
-        (const unsigned char*)emit_leaf, (const int*)leaf_sid,
-        (const int*)loci, frontier, gens, expand, k, max_steps, key_cap,
-        (int*)out_scores, (int*)out_sids, (unsigned char*)out_exact);
-  }
-  return (int)cudaGetLastError();
+  DenseEmit em;
+  em.emit_ptr = (const int*)emit_ptr;
+  em.emit_node = (const int*)emit_node;
+  em.emit_score = (const int*)emit_score;
+  em.emit_leaf = (const unsigned char*)emit_leaf;
+  em.leaf_sid = (const int*)leaf_sid;
+  return launch(em, loci, batch, frontier, gens, expand, k, max_steps,
+                key_cap, threads, shared_bytes, out_scores, out_sids,
+                out_exact, stream);
+}
+
+extern "C" int beam_topk_packed_launch(
+    const void* flags, const void* c_ids, int n_c, const void* eptr,
+    const void* enode, const void* escore, int escore_u16, const void* eleaf,
+    const void* maxscore, int maxscore_u16, const void* l_ids, int n_l,
+    const void* l_sid, int l_sid_u16, const void* loci, int batch,
+    int frontier, int gens, int expand, int k, int max_steps, int key_cap,
+    int threads, int shared_bytes, void* out_scores, void* out_sids,
+    void* out_exact, void* stream) {
+  PackedEmit em;
+  em.flags = (const unsigned char*)flags;
+  em.c_ids = (const int*)c_ids;
+  em.n_c = n_c;
+  em.eptr = (const int*)eptr;
+  em.enode = (const int*)enode;
+  em.escore = escore;
+  em.escore_u16 = escore_u16;
+  em.eleaf = (const unsigned char*)eleaf;
+  em.maxscore = maxscore;
+  em.maxscore_u16 = maxscore_u16;
+  em.l_ids = (const int*)l_ids;
+  em.n_l = n_l;
+  em.l_sid = l_sid;
+  em.l_sid_u16 = l_sid_u16;
+  return launch(em, loci, batch, frontier, gens, expand, k, max_steps,
+                key_cap, threads, shared_bytes, out_scores, out_sids,
+                out_exact, stream);
 }
 
 extern "C" const char* beam_topk_error_string(int err) {

@@ -2,10 +2,25 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas kernels repro/kernels/locus_dp.py:732
-// `locus_dp_walk` (tables resident in VMEM) and :773
-// `locus_dp_walk_streamed` (dictionary tables in HBM behind windowed DMA):
-// on the card every table sits in device memory and this one kernel reads
-// it there, whatever its size.
+// `locus_dp_walk` (tables resident in VMEM), :773 `locus_dp_walk_streamed`
+// (dictionary tables in HBM behind windowed DMA), :832
+// `locus_dp_walk_packed` and :871 `locus_dp_walk_packed_streamed` (the same
+// sweep over the compressed layout): on the card every table sits in
+// device memory and this one kernel reads it there, whatever its size.
+//
+// The sweep is written once, templated on its table accessor — the seam
+// of the Pallas kernels' `_ResidentTables` / `_PackedResidentTables`:
+//   - DenseTables reads the uniform int32 CSRs and planes;
+//   - PackedTables reads the compressed layout: a unary node's child is
+//     v+1 when the next node's u8 label matches (PACK_DICT_UNARY /
+//     PACK_SYN_UNARY), branching rows go through a rank lookup into the
+//     sorted b_ids / sb_ids, `tout` comes from c_tout at the chain
+//     representative (a synonym node is its own chain: v+1), and teleport
+//     and link rows come through t_ids and la_ids.  u8 planes widen to int
+//     at the load; an empty side table matches nothing (its size is
+//     checked, never its pointer read).
+// The merges, the overflow counts and the antichain step are therefore
+// one code for both layouts — the counts decide `exact` and the retry.
 //
 // One thread block per query.  The (L+1, F) frontier buffer lives in
 // dynamic shared memory for the whole sweep.  At each position i:
@@ -34,33 +49,21 @@
 // parallel across the block's threads.
 #include <cuda_runtime.h>
 
+#include "tables.cuh"
+
 namespace {
+
+using tables::lower_bound;
 
 constexpr int kIntMax = 2147483647;
 
-struct Tables {
+// The rule trie (dense in both layouts).
+struct RuleTables {
   const int* first_child;
   const int* edge_char;
   const int* edge_child;
   int n_edges;
-  const int* s_first_child;
-  const int* s_edge_char;
-  const int* s_edge_child;
-  int n_syn_edges;
-  const unsigned char* syn_mask;
-  const int* tout;
-  const int* tele_plane;
-  int tele_width;
-  int teleports;
-  const int* link_ptr;
-  const int* link_rule;
-  const int* link_target;
-  int n_links;
-  const int* r_first_child;
-  const int* r_edge_char;
-  const int* r_edge_child;
-  int n_r_edges;
-  const int* r_term_plane;
+  const int* term_plane;
   int term_width;
 };
 
@@ -99,23 +102,153 @@ __device__ __forceinline__ int csr_child(const int* __restrict__ ptr,
   return (lo < end && chars[lo] == c) ? children[lo] : -1;
 }
 
-// Link-store target of (anchor, rule), or -1.
-__device__ __forceinline__ int link_lookup(const Tables& t, int anchor,
-                                           int rid) {
-  if (anchor < 0 || t.n_links == 0) return -1;
-  int lo = t.link_ptr[anchor];
-  const int end = t.link_ptr[anchor + 1];
-  int hi = end;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (t.link_rule[mid] < rid) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return (lo < end && t.link_rule[lo] == rid) ? t.link_target[lo] : -1;
+// Target of rule `rid` in the rule-sorted link rows [lo, end), or -1.
+__device__ __forceinline__ int link_in_row(const int* __restrict__ rule,
+                                           const int* __restrict__ target,
+                                           int lo, int end, int rid) {
+  const int pos = lower_bound(rule, lo, end, rid);
+  return (pos < end && rule[pos] == rid) ? target[pos] : -1;
 }
+
+// Reads of the uniform int32 layout.
+struct DenseTables {
+  const int* first_child;
+  const int* edge_char;
+  const int* edge_child;
+  int n_edges;
+  const int* s_first_child;
+  const int* s_edge_char;
+  const int* s_edge_child;
+  int n_syn_edges;
+  const unsigned char* syn_mask;
+  const int* tout_arr;
+  const int* tele_plane;
+  int tele_width;
+  int teleports;
+  const int* link_ptr;
+  const int* link_rule;
+  const int* link_target;
+  int n_links;
+
+  __device__ bool has_syn() const { return n_syn_edges > 0; }
+  __device__ int dict_child(int node, int c) const {
+    return csr_child(first_child, edge_char, edge_child, n_edges, node, c);
+  }
+  __device__ int syn_child(int node, int c) const {
+    return csr_child(s_first_child, s_edge_char, s_edge_child, n_syn_edges,
+                     node, c);
+  }
+  // teleport target `col` of node (>= 0), or -1
+  __device__ int tele(int node, int col) const {
+    return tele_plane[(long long)node * tele_width + col];
+  }
+  __device__ bool is_syn(int node) const { return syn_mask[node] != 0; }
+  __device__ int tout(int node) const { return tout_arr[node]; }
+  __device__ int link(int anchor, int rid) const {
+    if (anchor < 0 || n_links == 0) return -1;
+    return link_in_row(link_rule, link_target, link_ptr[anchor],
+                       link_ptr[anchor + 1], rid);
+  }
+};
+
+// Exact position of `node` in a sorted id table of n entries, or -1.
+__device__ __forceinline__ int rank_exact(const int* __restrict__ ids, int n,
+                                          int node) {
+  if (n == 0) return -1;
+  const int pos = lower_bound(ids, 0, n, node);
+  return (pos < n && ids[pos] == node) ? pos : -1;
+}
+
+// Reads of the compressed layout (trie_build.pack_compressed); node ids
+// are the dense layout's, so every read returns the dense value.
+struct PackedTables {
+  const unsigned char* labels;
+  const unsigned char* flags;
+  int n_nodes;
+  const int* c_ids;
+  int n_c;
+  const int* c_tout;
+  const int* b_ids;
+  int n_b;
+  const int* b_ptr;
+  const unsigned char* b_char;
+  const int* b_child;
+  const int* sb_ids;
+  int n_sb;
+  const int* sb_ptr;
+  const unsigned char* sb_char;
+  const int* sb_child;
+  int n_sb_edges;
+  const int* t_ids;
+  int n_t;
+  const int* t_plane;
+  int tele_width;
+  int teleports;
+  const int* la_ids;
+  int n_la;
+  const int* la_ptr;
+  const int* link_rule;
+  const int* link_target;
+  int n_links;
+
+  // synonym nodes exist iff teleports do or a non-unary syn row was kept
+  __device__ bool has_syn() const { return n_t > 0 || n_sb_edges > 0; }
+
+  __device__ int child(const int* ids, int n_ids, const int* ptr,
+                       const unsigned char* chars, const int* children,
+                       int unary_bit, int node, int c) const {
+    if (node < 0 || c < 0) return -1;
+    const int r = rank_exact(ids, n_ids, node);
+    if (r >= 0) {   // a branching row
+      int lo = ptr[r];
+      const int end = ptr[r + 1];
+      int hi = end;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if ((int)chars[mid] < c) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      return (lo < end && (int)chars[lo] == c) ? children[lo] : -1;
+    }
+    // a unary node: its one child is v+1, labelled by v+1's incoming byte
+    if ((flags[node] & unary_bit) && node + 1 < n_nodes &&
+        (int)labels[node + 1] == c) {
+      return node + 1;
+    }
+    return -1;
+  }
+  __device__ int dict_child(int node, int c) const {
+    return child(b_ids, n_b, b_ptr, b_char, b_child, tables::kDictUnary,
+                 node, c);
+  }
+  __device__ int syn_child(int node, int c) const {
+    return child(sb_ids, n_sb, sb_ptr, sb_char, sb_child, tables::kSynUnary,
+                 node, c);
+  }
+  __device__ int tele(int node, int col) const {
+    const int r = rank_exact(t_ids, n_t, node);
+    return r < 0 ? -1 : t_plane[(long long)r * tele_width + col];
+  }
+  __device__ bool is_syn(int node) const {
+    return (flags[node] & tables::kIsSyn) != 0;
+  }
+  // a dict node reads its chain representative: the first stored id at
+  // or after it (the clipped lower bound over c_ids)
+  __device__ int tout(int node) const {
+    if (is_syn(node)) return node + 1;
+    return c_tout[tables::rep_rank(c_ids, n_c, node)];
+  }
+  __device__ int link(int anchor, int rid) const {
+    if (anchor < 0 || n_links == 0) return -1;
+    const int r = rank_exact(la_ids, n_la, anchor);
+    if (r < 0) return -1;
+    return link_in_row(link_rule, link_target, la_ptr[r], la_ptr[r + 1],
+                       rid);
+  }
+};
 
 // Ascending bitonic sort of a[0, n), n a power of two.  Called by every
 // thread of the block after a[] is written and synchronised; returns
@@ -179,7 +312,8 @@ __device__ int sort_compact(int* cand, int n, int* out, int width,
 
 // row [F] += its teleport targets, deduplicated back to [F]; returns the
 // overflow of the merge.
-__device__ int tele_expand(const Tables& t, int* row, int F, int* cand,
+template <class T>
+__device__ int tele_expand(const T& t, int* row, int F, int* cand,
                            int* scan, int* scan2) {
   const int tw = t.tele_width;
   const int total = F * (1 + tw);
@@ -190,7 +324,7 @@ __device__ int tele_expand(const Tables& t, int* row, int F, int* cand,
       v = row[j];
     } else if (j < total) {
       const int node = row[(j - F) / tw];
-      if (node >= 0) v = t.tele_plane[(long long)node * tw + (j - F) % tw];
+      if (node >= 0) v = t.tele(node, (j - F) % tw);
     }
     cand[j] = v < 0 ? kIntMax : v;
   }
@@ -198,7 +332,8 @@ __device__ int tele_expand(const Tables& t, int* row, int F, int* cand,
   return sort_compact(cand, n, row, F, scan, scan2);
 }
 
-__global__ void locus_dp_kernel(Tables t, Shape s,
+template <class T>
+__global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
                                 const int* __restrict__ queries,
                                 const int* __restrict__ qlens,
                                 int* __restrict__ loci_out,
@@ -234,18 +369,16 @@ __global__ void locus_dp_kernel(Tables t, Shape s,
     const int c = q[i];
 
     // literal step: row i+1 U dict children U synonym children
-    const int parts = t.n_syn_edges > 0 ? 3 : 2;
+    const int parts = t.has_syn() ? 3 : 2;
     const int n = pow2_at_least(parts * F);
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       int v = -1;
       if (j < F) {
         v = nxt[j];
       } else if (j < 2 * F) {
-        v = csr_child(t.first_child, t.edge_char, t.edge_child, t.n_edges,
-                      row[j - F], c);
+        v = t.dict_child(row[j - F], c);
       } else if (j < parts * F) {
-        v = csr_child(t.s_first_child, t.s_edge_char, t.s_edge_child,
-                      t.n_syn_edges, row[j - 2 * F], c);
+        v = t.syn_child(row[j - 2 * F], c);
       }
       cand[j] = v < 0 ? kIntMax : v;
     }
@@ -259,11 +392,11 @@ __global__ void locus_dp_kernel(Tables t, Shape s,
         int cnt = 0;
         for (int j = 0; j < s.max_lhs_len; ++j) {
           const int ch = i + j < L ? q[i + j] : -1;
-          node = csr_child(t.r_first_child, t.r_edge_char, t.r_edge_child,
-                           t.n_r_edges, node, ch);
+          node = csr_child(r.first_child, r.edge_char, r.edge_child,
+                           r.n_edges, node, ch);
           if (node < 0) break;
           for (int j2 = 0; j2 < s.max_terms; ++j2) {
-            const int rid = t.r_term_plane[(long long)node * t.term_width + j2];
+            const int rid = r.term_plane[(long long)node * r.term_width + j2];
             if (rid >= 0 && cnt < M) {
               m_rule[cnt] = rid;
               m_end[cnt] = i + j + 1;
@@ -282,7 +415,7 @@ __global__ void locus_dp_kernel(Tables t, Shape s,
         for (int j = threadIdx.x; j < F; j += blockDim.x) {
           const int a = row[j];
           int tg = -1;
-          if (a >= 0 && !t.syn_mask[a]) tg = link_lookup(t, a, rid);
+          if (a >= 0 && !t.is_syn(a)) tg = t.link(a, rid);
           cand[F + j] = tg < 0 ? kIntMax : tg;
           any |= tg >= 0;
         }
@@ -315,19 +448,24 @@ __global__ void locus_dp_kernel(Tables t, Shape s,
   const int n = pow2_at_least(F);
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
     int v = j < F ? row[j] : -1;
-    if (v >= 0 && t.syn_mask[v]) v = -1;
+    if (v >= 0 && t.is_syn(v)) v = -1;
     cand[j] = v < 0 ? kIntMax : v;
   }
   __syncthreads();
   int* fin = buf;   // row 0 is no longer read: the row was copied to cand
   sort_compact(cand, n, fin, F, scan, scan2);
+  int* fin_tout = scan;   // each locus's subtree end, read once
+  for (int j = threadIdx.x; j < F; j += blockDim.x) {
+    fin_tout[j] = fin[j] >= 0 ? t.tout(fin[j]) : 0;
+  }
+  __syncthreads();
   for (int j = threadIdx.x; j < F; j += blockDim.x) {
     const int x = fin[j];
     int res = x;
     if (x >= 0) {
       for (int g = 0; g < F; ++g) {
         const int y = fin[g];
-        if (g != j && y >= 0 && y <= x && x < t.tout[y]) {
+        if (g != j && y >= 0 && y <= x && x < fin_tout[g]) {
           res = -1;
           break;
         }
@@ -336,6 +474,48 @@ __global__ void locus_dp_kernel(Tables t, Shape s,
     loci_out[(long long)b * F + j] = res;
   }
   if (threadIdx.x == 0) overflow_out[b] = overflow;
+}
+
+template <class T>
+int launch(const T& t, const RuleTables& r, const Shape& s, int threads,
+           int shared_bytes, const void* queries, const void* qlens,
+           int batch, void* loci_out, void* overflow_out, void* stream) {
+  if (batch > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        locus_dp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        shared_bytes);
+    if (err != cudaSuccess) return (int)err;
+    locus_dp_kernel<T><<<batch, threads, shared_bytes,
+                         (cudaStream_t)stream>>>(
+        t, r, s, (const int*)queries, (const int*)qlens, (int*)loci_out,
+        (int*)overflow_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+RuleTables rule_tables(const void* r_first_child, const void* r_edge_char,
+                       const void* r_edge_child, int n_r_edges,
+                       const void* r_term_plane, int term_width) {
+  RuleTables r;
+  r.first_child = (const int*)r_first_child;
+  r.edge_char = (const int*)r_edge_char;
+  r.edge_child = (const int*)r_edge_child;
+  r.n_edges = n_r_edges;
+  r.term_plane = (const int*)r_term_plane;
+  r.term_width = term_width;
+  return r;
+}
+
+Shape shape(int frontier, int seq_len, int rule_matches, int max_lhs_len,
+            int max_terms, int cand_cap) {
+  Shape s;
+  s.frontier = frontier;
+  s.seq_len = seq_len;
+  s.rule_matches = rule_matches;
+  s.max_lhs_len = max_lhs_len;
+  s.max_terms = max_terms;
+  s.cand_cap = cand_cap;
+  return s;
 }
 
 }  // namespace
@@ -352,7 +532,7 @@ extern "C" int locus_dp_launch(
     int max_lhs_len, int max_terms, int cand_cap, int threads,
     int shared_bytes, const void* queries, const void* qlens, int batch,
     void* loci_out, void* overflow_out, void* stream) {
-  Tables t;
+  DenseTables t;
   t.first_child = (const int*)first_child;
   t.edge_char = (const int*)edge_char;
   t.edge_child = (const int*)edge_child;
@@ -362,7 +542,7 @@ extern "C" int locus_dp_launch(
   t.s_edge_child = (const int*)s_edge_child;
   t.n_syn_edges = n_syn_edges;
   t.syn_mask = (const unsigned char*)syn_mask;
-  t.tout = (const int*)tout;
+  t.tout_arr = (const int*)tout;
   t.tele_plane = (const int*)tele_plane;
   t.tele_width = tele_width;
   t.teleports = teleports;
@@ -370,29 +550,65 @@ extern "C" int locus_dp_launch(
   t.link_rule = (const int*)link_rule;
   t.link_target = (const int*)link_target;
   t.n_links = n_links;
-  t.r_first_child = (const int*)r_first_child;
-  t.r_edge_char = (const int*)r_edge_char;
-  t.r_edge_child = (const int*)r_edge_child;
-  t.n_r_edges = n_r_edges;
-  t.r_term_plane = (const int*)r_term_plane;
-  t.term_width = term_width;
-  Shape s;
-  s.frontier = frontier;
-  s.seq_len = seq_len;
-  s.rule_matches = rule_matches;
-  s.max_lhs_len = max_lhs_len;
-  s.max_terms = max_terms;
-  s.cand_cap = cand_cap;
-  if (batch > 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        locus_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        shared_bytes);
-    if (err != cudaSuccess) return (int)err;
-    locus_dp_kernel<<<batch, threads, shared_bytes, (cudaStream_t)stream>>>(
-        t, s, (const int*)queries, (const int*)qlens, (int*)loci_out,
-        (int*)overflow_out);
-  }
-  return (int)cudaGetLastError();
+  return launch(t,
+                rule_tables(r_first_child, r_edge_char, r_edge_child,
+                            n_r_edges, r_term_plane, term_width),
+                shape(frontier, seq_len, rule_matches, max_lhs_len,
+                      max_terms, cand_cap),
+                threads, shared_bytes, queries, qlens, batch, loci_out,
+                overflow_out, stream);
+}
+
+extern "C" int locus_dp_packed_launch(
+    const void* labels, const void* flags, int n_nodes, const void* c_ids,
+    int n_c, const void* c_tout, const void* b_ids, int n_b,
+    const void* b_ptr, const void* b_char, const void* b_child,
+    const void* sb_ids, int n_sb, const void* sb_ptr, const void* sb_char,
+    const void* sb_child, int n_sb_edges, const void* t_ids, int n_t,
+    const void* t_plane, int tele_width, int teleports, const void* la_ids,
+    int n_la, const void* la_ptr, const void* link_rule,
+    const void* link_target, int n_links, const void* r_first_child,
+    const void* r_edge_char, const void* r_edge_child, int n_r_edges,
+    const void* r_term_plane, int term_width, int frontier, int seq_len,
+    int rule_matches, int max_lhs_len, int max_terms, int cand_cap,
+    int threads, int shared_bytes, const void* queries, const void* qlens,
+    int batch, void* loci_out, void* overflow_out, void* stream) {
+  PackedTables t;
+  t.labels = (const unsigned char*)labels;
+  t.flags = (const unsigned char*)flags;
+  t.n_nodes = n_nodes;
+  t.c_ids = (const int*)c_ids;
+  t.n_c = n_c;
+  t.c_tout = (const int*)c_tout;
+  t.b_ids = (const int*)b_ids;
+  t.n_b = n_b;
+  t.b_ptr = (const int*)b_ptr;
+  t.b_char = (const unsigned char*)b_char;
+  t.b_child = (const int*)b_child;
+  t.sb_ids = (const int*)sb_ids;
+  t.n_sb = n_sb;
+  t.sb_ptr = (const int*)sb_ptr;
+  t.sb_char = (const unsigned char*)sb_char;
+  t.sb_child = (const int*)sb_child;
+  t.n_sb_edges = n_sb_edges;
+  t.t_ids = (const int*)t_ids;
+  t.n_t = n_t;
+  t.t_plane = (const int*)t_plane;
+  t.tele_width = tele_width;
+  t.teleports = teleports;
+  t.la_ids = (const int*)la_ids;
+  t.n_la = n_la;
+  t.la_ptr = (const int*)la_ptr;
+  t.link_rule = (const int*)link_rule;
+  t.link_target = (const int*)link_target;
+  t.n_links = n_links;
+  return launch(t,
+                rule_tables(r_first_child, r_edge_char, r_edge_child,
+                            n_r_edges, r_term_plane, term_width),
+                shape(frontier, seq_len, rule_matches, max_lhs_len,
+                      max_terms, cand_cap),
+                threads, shared_bytes, queries, qlens, batch, loci_out,
+                overflow_out, stream);
 }
 
 extern "C" const char* locus_dp_error_string(int err) {

@@ -1,8 +1,14 @@
-"""CUDA kernel: fused synonym-aware locus DP (phase 1, tt/et/ht, e=0).
+"""CUDA kernel: fused synonym-aware locus DP (phase 1, e=0).
 
-Replaces ``repro/kernels/locus_dp.py:732`` ``locus_dp_walk`` and ``:773``
-``locus_dp_walk_streamed``: every table sits in device memory, so one
-kernel (``csrc/locus_dp.cu``) covers both tiers.  One thread block per
+Replaces ``repro/kernels/locus_dp.py:732`` ``locus_dp_walk``, ``:773``
+``locus_dp_walk_streamed``, ``:832`` ``locus_dp_walk_packed`` and ``:871``
+``locus_dp_walk_packed_streamed``: every table sits in device memory, so
+one kernel (``csrc/locus_dp.cu``) covers both tiers, and its sweep is
+templated on a table accessor for the dense and the packed layout (two C
+entry points, ``locus_dp_launch`` and ``locus_dp_packed_launch``).  It
+serves dense tt/et/ht indexes and every packed index, the plain kind
+included (the packed layout has no dense CSR for the prefix walk).
+One thread block per
 query keeps the whole (L+1, F) frontier buffer in shared memory; every
 merge is a block-wide bitonic sort of the candidate row and a prefix-sum
 compaction, bit-identical to ``dedup_pad`` (ids ascending, first F kept,
@@ -27,12 +33,15 @@ import ctypes
 import torch
 
 from repro_torch.core.engine import locus
+from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import DeviceTrie, EngineConfig
 from repro_torch.kernels import _build
 from repro_torch.not_ported import not_ported
 
-#: kernel launches (each :func:`locus_dp_walk` call on CUDA tensors adds one)
+#: kernel launches on the dense layout (each :func:`locus_dp_walk` call on
+#: CUDA tensors of a dense index adds one) and on the packed layout
 launches = 0
+packed_launches = 0
 
 #: the plain version: the engine's reference frontier DP
 locus_dp_plain = locus.locus_dp
@@ -63,14 +72,76 @@ def launch_shape(cfg: EngineConfig, seq_len: int):
     return cand, threads, shared
 
 
+#: the shape and rule-trie arguments both entry points end with
+_TAIL = ([_V, _V, _V, _I, _V, _I] + [_I] * 8 + [_V, _V, _I, _V, _V, _V])
+
+
 def _lib():
     fn = _build.library("locus_dp").locus_dp_launch
     if fn.argtypes is None:
         fn.argtypes = ([_V, _V, _V, _I, _V, _V, _V, _I, _V, _V, _V, _I, _I,
-                        _V, _V, _V, _I, _V, _V, _V, _I, _V, _I]
-                       + [_I] * 8 + [_V, _V, _I, _V, _V, _V])
+                        _V, _V, _V, _I] + _TAIL)
         fn.restype = _I
     return fn
+
+
+def _lib_packed():
+    fn = _build.library("locus_dp").locus_dp_packed_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_V, _V, _I, _V, _I, _V, _V, _I, _V, _V, _V, _V, _I,
+                        _V, _V, _V, _I, _V, _I, _V, _I, _I, _V, _I, _V, _V,
+                        _V, _I] + _TAIL)
+        fn.restype = _I
+    return fn
+
+
+def _packed_tables(t: DeviceTrie, dev: torch.device):
+    """The packed entry point's table arguments, checked: u8 planes and
+    characters, int32 everything else."""
+    name = "locus_dp"
+    u8 = dict(p_labels=t.p_labels, p_flags=t.p_flags, b_char=t.b_char,
+              sb_char=t.sb_char)
+    i32 = dict(c_ids=t.c_ids, c_tout=t.c_tout, b_ids=t.b_ids, b_ptr=t.b_ptr,
+               b_child=t.b_child, sb_ids=t.sb_ids, sb_ptr=t.sb_ptr,
+               sb_child=t.sb_child, t_ids=t.t_ids, t_plane=t.t_plane,
+               la_ids=t.la_ids, la_ptr=t.la_ptr, link_rule=t.link_rule,
+               link_target=t.link_target)
+    _build.check_tensors(name, dev, _build.PACKED_DTYPES, **u8, **i32)
+    for arg, x in u8.items():
+        _build.check_dtype(name, arg, x, torch.uint8)
+    for arg, x in i32.items():
+        _build.check_dtype(name, arg, x, torch.int32)
+    p = _build.ptr
+    return (
+        p(t.p_labels), p(t.p_flags), int(t.p_labels.shape[0]),
+        p(t.c_ids), int(t.c_ids.shape[0]), p(t.c_tout),
+        p(t.b_ids), int(t.b_ids.shape[0]), p(t.b_ptr), p(t.b_char),
+        p(t.b_child),
+        p(t.sb_ids), int(t.sb_ids.shape[0]), p(t.sb_ptr), p(t.sb_char),
+        p(t.sb_child), int(t.sb_child.shape[0]),
+        p(t.t_ids), int(t.t_ids.shape[0]), p(t.t_plane),
+        int(t.t_plane.shape[1]))
+
+
+def _dense_tables(t: DeviceTrie, dev: torch.device):
+    tables = dict(
+        first_child=t.first_child, edge_char=t.edge_char,
+        edge_child=t.edge_child, s_first_child=t.s_first_child,
+        s_edge_char=t.s_edge_char, s_edge_child=t.s_edge_child,
+        syn_mask=t.syn_mask, tout=t.tout, tele_plane=t.tele_plane,
+        link_ptr=t.link_ptr, link_rule=t.link_rule,
+        link_target=t.link_target)
+    _build.check_tensors("locus_dp", dev, **tables)
+    if t.syn_mask.dtype != torch.bool:
+        raise TypeError("locus_dp: syn_mask must be bool")
+    p = _build.ptr
+    return (
+        p(t.first_child), p(t.edge_char), p(t.edge_child),
+        int(t.edge_char.shape[0]),
+        p(t.s_first_child), p(t.s_edge_char), p(t.s_edge_child),
+        int(t.s_edge_char.shape[0]),
+        p(t.syn_mask), p(t.tout), p(t.tele_plane),
+        int(t.tele_plane.shape[1]))
 
 
 def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
@@ -80,40 +151,32 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
 
     queries int32[B, L] (-1 padded), qlens int32[B] ->
     (loci[B, F] int32, overflow[B] int32)."""
-    global launches
+    global launches, packed_launches
     if queries.device.type == "cpu":
         return locus_dp_plain(t, cfg, queries, qlens)
     if cfg.edit_budget:
         raise not_ported("edits")
     dev = queries.device
-    tables = dict(
-        first_child=t.first_child, edge_char=t.edge_char,
-        edge_child=t.edge_child, s_first_child=t.s_first_child,
-        s_edge_char=t.s_edge_char, s_edge_child=t.s_edge_child,
-        syn_mask=t.syn_mask, tout=t.tout, tele_plane=t.tele_plane,
-        link_ptr=t.link_ptr, link_rule=t.link_rule,
-        link_target=t.link_target, r_first_child=t.r_first_child,
-        r_edge_char=t.r_edge_char, r_edge_child=t.r_edge_child,
-        r_term_plane=t.r_term_plane)
+    rule = dict(r_first_child=t.r_first_child, r_edge_char=t.r_edge_char,
+                r_edge_child=t.r_edge_child, r_term_plane=t.r_term_plane)
     _build.check_tensors("locus_dp", dev, queries=queries, qlens=qlens,
-                         **tables)
-    if t.syn_mask.dtype != torch.bool:
-        raise TypeError("locus_dp: syn_mask must be bool")
+                         **rule)
+    packed = pk.is_packed(t)
+    if packed:
+        head = _packed_tables(t, dev) + (
+            cfg.teleports, _build.ptr(t.la_ids), int(t.la_ids.shape[0]),
+            _build.ptr(t.la_ptr))
+    else:
+        head = _dense_tables(t, dev) + (cfg.teleports, _build.ptr(t.link_ptr))
     B, L = queries.shape
     F = cfg.frontier
     cand, threads, shared = launch_shape(cfg, L)
     loci = torch.empty((B, F), dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = _lib()(
-        p(t.first_child), p(t.edge_char), p(t.edge_child),
-        int(t.edge_char.shape[0]),
-        p(t.s_first_child), p(t.s_edge_char), p(t.s_edge_child),
-        int(t.s_edge_char.shape[0]),
-        p(t.syn_mask), p(t.tout), p(t.tele_plane),
-        int(t.tele_plane.shape[1]), cfg.teleports,
-        p(t.link_ptr), p(t.link_rule), p(t.link_target),
-        int(t.link_rule.shape[0]),
+    fn = _lib_packed() if packed else _lib()
+    err = fn(
+        *head, p(t.link_rule), p(t.link_target), int(t.link_rule.shape[0]),
         p(t.r_first_child), p(t.r_edge_char), p(t.r_edge_child),
         int(t.r_edge_char.shape[0]), p(t.r_term_plane),
         int(t.r_term_plane.shape[1]),
@@ -121,5 +184,8 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
         cand, threads, shared,
         p(queries), p(qlens), B, p(loci), p(overflow), _build.stream(dev))
     _build.check_launch("locus_dp", err)
-    launches += 1
+    if packed:
+        packed_launches += 1
+    else:
+        launches += 1
     return loci, overflow

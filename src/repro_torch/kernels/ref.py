@@ -5,8 +5,26 @@ counterpart."""
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.core.engine.cached import select_topk as topk_select_ref
+from repro_torch.core.engine.structs import NEG_ONE
 from repro_torch.kernels.beam_topk import beam_topk_plain as beam_topk_ref
 from repro_torch.kernels.locus_dp import locus_dp_plain as locus_walk_ref
 from repro_torch.kernels.trie_walk import trie_walk_plain as trie_walk_ref
 
-__all__ = ["beam_topk_ref", "locus_walk_ref", "trie_walk_ref"]
+__all__ = ["beam_topk_ref", "cached_topk_merge_ref", "locus_walk_ref",
+           "topk_select_ref", "trie_walk_ref"]
+
+
+def cached_topk_merge_ref(loci, topk_score, topk_sid, k: int):
+    """Cached-top-K locus gather + merge over a dense [N, K] cache
+    (``repro.kernels.ref.cached_topk_merge_ref``): loci int32[B, F] ->
+    (scores[B, k], sids[B, k]), score-descending, -1 where empty,
+    candidates loci-major/K-minor."""
+    valid = loci >= 0
+    n = torch.where(valid, loci, 0).long()
+    sc = torch.where(valid[..., None], topk_score[n], NEG_ONE)
+    si = torch.where(valid[..., None], topk_sid[n], NEG_ONE)
+    b = int(loci.shape[0])
+    return topk_select_ref(sc.reshape(b, -1), si.reshape(b, -1), k)

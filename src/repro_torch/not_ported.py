@@ -7,13 +7,11 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "cache": (2, "cache_k > 0 (the cached phase 2)"),
     "edits": (3, "edit_budget > 0 (bounded-edit matching)"),
     "sessions": (4, "incremental sessions"),
     "scheduler": (5, "the keystroke scheduler (batching=True)"),
     "reranking": (5, "reranking"),
     "mutations": (6, "online mutations"),
-    "packed": (7, "compression='packed' (the compressed layout)"),
     "sharding": (8, "sharded indexes"),
     "save": (9, "saving an index (containers saved by the JAX package "
                 "load with load_index)"),

@@ -88,8 +88,7 @@ def test_auto_substrate_follows_the_device():
         resolve_substrate("jnp", "cpu")
 
 
-SPEC_OPTIONS = [dict(cache_k=4), dict(compression="packed"),
-                dict(edit_budget=1), dict(kind="multiterm")]
+SPEC_OPTIONS = [dict(edit_budget=1), dict(kind="multiterm")]
 
 
 @pytest.mark.parametrize("opt", SPEC_OPTIONS, ids=lambda o: next(iter(o)))
@@ -125,8 +124,10 @@ def test_out_of_slice_surfaces_raise(name, call):
 def test_no_fallback_between_kernel_and_plain_version():
     """No try/except on the query path: a kernel that cannot run raises."""
     for mod in ("kernels/trie_walk.py", "kernels/locus_dp.py",
-                "kernels/beam_topk.py", "core/engine/substrate.py",
+                "kernels/beam_topk.py", "kernels/topk_select.py",
+                "kernels/locus_merge.py", "core/engine/substrate.py",
                 "core/engine/locus.py", "core/engine/beam.py",
+                "core/engine/packed.py", "core/engine/cached.py",
                 "api/index.py"):
         text = (ROOT / "src" / "repro_torch" / mod).read_text()
         assert "try:" not in text, mod
