@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. print the card (``nvidia-smi``), the torch and CUDA versions, and build
    the hand-written kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once; ``-Xptxas -v`` printed per source);
 2. build the indexes.  USPS ET at 1,000,000 strings (the paper's size,
    seed 0) is built once; its cached (``cache_k=16``) and packed
    (``compression="packed"``) variants are derived from the same host trie
@@ -17,23 +17,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    element for element, at the main path's shapes (B=64, L bucket 32,
    k=10) with the default widths, the first retry round's and the widest:
    the dense and the packed locus DP and beam on DBLP TT, DBLP HT (24,810
-   strings) and USPS ET 1M; ``trie_walk``; ``locus_topk_merge`` on the
+   strings) and USPS ET 1M; the locus DP's edit transitions (E = 1 and 2,
+   both accessors, DBLP TT, DBLP HT, USPS plain 100k and USPS ET 1M, at
+   F = 32, 64, 128 and 256, and with its rows forced into the
+   device-memory workspace); ``trie_walk``; ``locus_topk_merge`` on the
    dense and the packed K=16 cache, ``k >= F*K`` included; ``topk_select``
    at the rule-free cached route's shape (C=K=16, k=10) and on [64, 512]
-   rows with seeded ties;
+   rows with seeded ties; ``candidate_topk`` at 1 query x 1,000,000
+   candidates x D=64, k=100 (scores within 1e-5 relative, ids equal but
+   for near-ties) and ``embedding_bag`` on a 1,000,000 x 64 table, 512
+   bags of 0-32 entries, sum and mean, float32 (1e-5) and bfloat16
+   (3e-2);
 4. drive the main path through ``CompletionService.complete`` with the
    launcher's batch workload (512 queries of ``make_workload(seed=1)``,
    batch 64, k=10, one warm-up batch) on: USPS ET 1M dense (beam), USPS
    plain 100k dense (beam), USPS ET 1M packed (beam), USPS ET 1M packed
    with ``cache_k=16``, USPS ET 1M dense with ``cache_k=16`` and USPS
-   plain 100k with ``cache_k=16``.  Every kernel of a path must launch in
-   it, no plain version may run, the answers must equal the ``"torch"``
-   substrate's on the same index, and each packed index's answers must
-   equal the dense index's of the same cache depth (node ids are shared,
-   so the layouts agree bit for bit);
+   plain 100k with ``cache_k=16``; then bounded-edit completion: the same
+   USPS ET 1M indexes (dense and packed, beam and ``cache_k=16``)
+   reconfigured to ``edit_budget=1`` without a rebuild, and the dense one
+   with the beam at ``edit_budget=2``; then the off-path ``ops`` entry
+   points (``candidate_topk`` at the retrieval shape, ``embedding_bag``
+   at 512 bags).  Every kernel of a path must launch in it, no plain
+   version may run, the answers must equal the ``"torch"`` substrate's on
+   the same index (edit paths: on their first 128, at E = 2 64, queries),
+   and each packed index's answers must equal the dense index's of the
+   same cache depth and edit budget (node ids are shared, so the layouts
+   agree bit for bit);
 5. time each kernel against its plain version, its bound and (where one
-   exists) a PyTorch library call at the main path's shapes; print one
-   JSON line of kernels, the card, and, last, the device line.
+   exists) a PyTorch library call at the main path's shapes (the locus DP
+   also at E = 1 and 2); print one JSON line of kernels, the card, and,
+   last, the device line.
 
 ``--small`` runs every phase on small corpora (a quick compile-and-check).
 Without a CUDA device the script exits non-zero and prints no result.
@@ -59,6 +73,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 B, L_BUCKET, K, CACHE_K = 64, 32, 10, 16
+EDIT_FRONTIERS = (64, 128, 256)   # the widened retry's frontiers
+# the off-path kernels' shapes: the JAX package's retrieval_cand cell (1
+# query x 1,000,000 candidates) and serve_p99 (512 bags) at DLRM RM2's
+# embed_dim and table rows (src/repro/configs/base.py, dlrm_rm2.py)
+CAND_N, CAND_D, CAND_K = 1_000_000, 64, 100
+BAG_ROWS, BAG_D, BAGS, BAG_MAX = 1_000_000, 64, 512, 32
 RETRY = dict(frontier=64, gens=192, max_steps=2048)     # first retry round
 WIDEST = dict(frontier=256, gens=3072, max_steps=32768)  # third retry round
 PAPER_B_PER_STRING = (160, 200)   # the paper's space claim
@@ -112,6 +132,39 @@ def check_equal(name: str, what: str, got, want) -> None:
     log(f"  {name} {what}: equal")
 
 
+def check_close(name: str, what: str, got, want, tol: float) -> None:
+    """Float outputs: |got - want| <= tol * (1 + |want|) elementwise."""
+    import torch
+
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    MAX_ABS_ERR[name] = max(MAX_ABS_ERR.get(name, 0.0), err)
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{name} {what}: kernel and plain version "
+                             f"differ by {err} (tolerance {tol})")
+    log(f"  {name} {what}: max |err| {err:.3g} within {tol}")
+
+
+def check_topk(what: str, got, want, tol: float = 1e-5) -> None:
+    """candidate_topk: scores within ``tol`` relative; ids equal except
+    where the plain version's neighbouring scores lie within ``tol`` (a
+    near-tie the two summation orders may break either way)."""
+    import torch
+
+    (gs, gi), (ws, wi) = got, want
+    check_close("candidate_topk", what + " scores", gs, ws, tol)
+    near = torch.zeros_like(wi, dtype=torch.bool)
+    close = (ws[1:] - ws[:-1]).abs() <= tol * ws[1:].abs().clamp(min=1)
+    near[1:] |= close
+    near[:-1] |= close
+    bad = (gi != wi) & ~near
+    if bad.any():
+        raise AssertionError(f"candidate_topk {what}: ids differ away from "
+                             f"near-ties at {bad.nonzero()[:5].tolist()}")
+    log(f"  candidate_topk {what} ids: equal ({int((gi != wi).sum())} "
+        "swapped within near-ties)")
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -143,8 +196,9 @@ def main() -> int:
     from repro_torch.core.engine import beam, cached, locus
     from repro_torch.core.trie_build import make_rules
     from repro_torch.data.strings import make_dblp, make_usps, make_workload
-    from repro_torch.kernels import (_build, beam_topk, locus_dp,
-                                     locus_merge, topk_select, trie_walk)
+    from repro_torch.kernels import (_build, beam_topk, candidate_topk,
+                                     embedding_bag, locus_dp, locus_merge,
+                                     ops, topk_select, trie_walk)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -162,7 +216,8 @@ def main() -> int:
         f"(nvcc {_build.build_seconds} s)")
     for name, text in _build.ptxas_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # -- phase 2: the indexes -------------------------------------------------------
@@ -237,6 +292,8 @@ def main() -> int:
     usps_et_c = derive("USPS ET cache_k=16", usps_et, et_cached, "none")
     usps_plain_c = derive("USPS plain cache_k=16", usps_plain,
                           cached_trie(usps_plain), "none")
+    usps_plain_p = derive("USPS plain packed", usps_plain, usps_plain.trie,
+                          "packed")
     del et_cached
 
     def batch(ds, seed, n=B):
@@ -292,6 +349,59 @@ def main() -> int:
         got_b = beam_topk.beam_topk_batch(idx.tensors, cfg, got[0], K)
         check_equal("beam_topk" + sfx, f"{name} widest W=3072", got_b,
                     beam_topk.beam_topk_plain(idx.tensors, cfg, got[0], K))
+    # the edit transitions: E = 1 and 2, both accessors, four corpora, the
+    # default frontier and the widened retry's
+    edit_loci = {}
+    for name, idx, ds in (("DBLP TT", dblp_tt, dblp),
+                          ("DBLP HT", dblp_ht, dblp),
+                          ("USPS plain", usps_plain, usps_small),
+                          ("USPS ET", usps_et, usps),
+                          ("DBLP TT packed", dblp_tt_p, dblp),
+                          ("DBLP HT packed", dblp_ht_p, dblp),
+                          ("USPS plain packed", usps_plain_p, usps_small),
+                          ("USPS ET packed", usps_et_p, usps)):
+        kern = "locus_dp_packed" if "packed" in name else "locus_dp"
+        q, ql = batch(ds, seed=1)
+        for e in (1, 2):
+            for f in (idx.cfg.frontier,) + EDIT_FRONTIERS:
+                cfg = replace(idx.cfg, edit_budget=e, frontier=f)
+                ls = locus_dp.launch_shape(cfg, L_BUCKET)
+                got = locus_dp.locus_dp_walk(idx.tensors, cfg, q, ql)
+                want = locus_dp.locus_dp_plain(idx.tensors, cfg, q, ql)
+                check_equal(kern, f"{name} E={e} F={f} BW="
+                            f"{cfg.branch_width} cand={ls.cand} shared="
+                            f"{ls.shared} workspace={ls.ws_stride} "
+                            f"overflowing={int((got[1] > 0).sum())}/{B}",
+                            got, want)
+                edit_loci[name, e, f] = got
+    for (name, e, f), got in edit_loci.items():
+        other = edit_loci.get((name + " packed", e, f), got)
+        if not all(torch.equal(a, b) for a, b in zip(got, other)):
+            raise AssertionError(f"{name} E={e} F={f}: packed and dense "
+                                 "loci differ")
+    log("  dense and packed loci and overflow equal at E = 1 and 2")
+    # the device-memory workspace, forced: candidate rows, then the
+    # frontier too
+    saved_max = _build.MAX_SHARED_BYTES
+    for name, idx, ds, e in (("USPS ET", usps_et, usps, 1),
+                             ("DBLP HT packed", dblp_ht_p, dblp, 2)):
+        kern = "locus_dp_packed" if "packed" in name else "locus_dp"
+        q, ql = batch(ds, seed=1)
+        cfg = replace(idx.cfg, edit_budget=e, frontier=64)
+        if locus_dp.launch_shape(cfg, L_BUCKET).ws_stride:
+            raise AssertionError(f"{name}: F=64 should fit shared memory")
+        small = 4 * (L_BUCKET + 2 * max(cfg.rule_matches, 1))
+        for cap in (small + 4 * (L_BUCKET + 1) * 64, small):
+            _build.MAX_SHARED_BYTES = cap
+            forced = locus_dp.launch_shape(cfg, L_BUCKET)
+            got = locus_dp.locus_dp_walk(idx.tensors, cfg, q, ql)
+            _build.MAX_SHARED_BYTES = saved_max
+            check_equal(kern, f"{name} E={e} F=64 forced workspace "
+                        f"(frontier {forced.buf_in_ws}, candidates "
+                        f"{forced.cand_in_ws}, {forced.ws_stride} ints a "
+                        "block)", got,
+                        locus_dp.locus_dp_plain(idx.tensors, cfg, q, ql))
+
     # the cached merge on both cache layouts, k < F*K, k == F*K, k > F*K
     loci_et = loci_sets["USPS ET", "default"][2]
     F = int(loci_et.shape[1])
@@ -329,6 +439,44 @@ def main() -> int:
         check_equal("topk_select", f"[64, 512] seeded ties k={k}", got,
                     topk_select.topk_select_plain(wide_s, wide_p, k))
 
+    # the off-path kernels, on inputs made on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_cand = 20_000 if args.small else CAND_N
+    cand_q = torch.randn(CAND_D, generator=gen, device=dev)
+    cands = torch.randn(n_cand, CAND_D, generator=gen, device=dev)
+    check_topk(f"C={n_cand} D={CAND_D} k={CAND_K}",
+               candidate_topk.candidate_topk(cand_q, cands, CAND_K),
+               candidate_topk.candidate_topk_plain(cand_q, cands, CAND_K))
+    for c_n, k, bc in ((300, 200, 256), (5, 9, 1024), (4097, 1, 64)):
+        check_topk(f"C={c_n} k={k} block_c={bc}",
+                   candidate_topk.candidate_topk(cand_q, cands[:c_n], k, bc),
+                   candidate_topk.candidate_topk_plain(cand_q, cands[:c_n],
+                                                       k))
+    n_rows = 20_000 if args.small else BAG_ROWS
+    bag_table = torch.randn(n_rows, BAG_D, generator=gen, device=dev)
+    bag_lens = torch.randint(0, BAG_MAX + 1, (BAGS,), generator=gen,
+                             device=dev)
+    bag_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         bag_lens.cumsum(0)]).to(torch.int32)
+    n_idx = int(bag_off[-1])
+    bag_idx = torch.randint(0, n_rows, (n_idx,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    bag_w = torch.randn(n_idx, generator=gen, device=dev)
+    holes = torch.where(torch.rand(n_idx, generator=gen, device=dev) < 0.05,
+                        -1, bag_idx).to(torch.int32)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        tab = bag_table.to(dt)
+        for indices, label in ((bag_idx, ""), (holes, ", 5% -1")):
+            d_idx, d_w = ops.densify_bags(indices, bag_off, bag_w, None, dt,
+                                          dev)
+            for mode in ("sum", "mean"):
+                check_close("embedding_bag", f"{n_rows}x{BAG_D} "
+                            f"{str(dt)[6:]} {BAGS} bags {mode}{label}",
+                            embedding_bag.embedding_bag_dense(tab, d_idx,
+                                                              d_w, mode),
+                            embedding_bag.embedding_bag_dense_plain(
+                                tab, d_idx, d_w, mode), tol)
+
     # -- phase 4: the main path ---------------------------------------------------
     counters = {
         "trie_walk": (trie_walk, "launches"),
@@ -338,10 +486,14 @@ def main() -> int:
         "beam_topk_packed": (beam_topk, "packed_launches"),
         "topk_select": (topk_select, "launches"),
         "locus_topk_merge": (locus_merge, "launches"),
+        "candidate_topk": (candidate_topk, "launches"),
+        "embedding_bag": (embedding_bag, "launches"),
     }
     plain_counters = ((trie_walk, "plain_calls"), (locus, "calls"),
                       (beam, "calls"), (cached, "calls"),
-                      (cached, "select_calls"))
+                      (cached, "select_calls"),
+                      (candidate_topk, "plain_calls"),
+                      (embedding_bag, "plain_calls"))
 
     def reset_counts():
         for mod, attr in list(counters.values()) + list(plain_counters):
@@ -354,7 +506,10 @@ def main() -> int:
 
     answers = {}
 
-    def main_path(name, idx, ds, must_launch):
+    def main_path(name, idx, ds, must_launch, n_check=None):
+        """Drive ``idx`` through the service on the 512-query workload;
+        hold the answers against the torch substrate's on the first
+        ``n_check`` queries (all by default)."""
         queries = make_workload(ds, 512, seed=1)
         batches = [queries[i:i + B] for i in range(0, len(queries), B)]
         service = rt.CompletionService(idx)
@@ -363,6 +518,7 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
+        retried = list(idx.retried)
         reset_counts()
         lat = []
         results = []
@@ -371,6 +527,7 @@ def main() -> int:
             results += service.complete(b, k=K)
             lat.append((time.perf_counter() - t) * 1e3)
         c = counts()
+        retried = [a - b for a, b in zip(idx.retried, retried)]
         peak = torch.cuda.max_memory_allocated()
         st = service.stats
         lat_sorted = sorted(lat)
@@ -386,22 +543,24 @@ def main() -> int:
             f"{PAPER_B_PER_STRING[0]}-{PAPER_B_PER_STRING[1]}), "
             f"max_memory_allocated {peak} B (all indexes resident: "
             f"{resident} B; the path's own peak {peak - resident} B), "
-            f"launches {c}")
+            f"queries re-run by retry rounds 1-3 {retried}, launches {c}")
         for k_name in must_launch:
             if c[k_name] <= 0:
                 raise AssertionError(f"{name}: {k_name} never launched")
         if c["plain"]:
             raise AssertionError(f"{name}: a plain version ran on the main "
                                  "path")
+        held = queries[:n_check]
         idx.reconfigure(substrate="torch")
-        want = [r for b in batches for r in idx.complete(b, k=K)]
+        want = [r for i in range(0, len(held), B)
+                for r in idx.complete(held[i:i + B], k=K)]
         idx.reconfigure(substrate="cuda")
-        if results != want:
+        if results[:len(held)] != want:
             bad = [i for i, (a, b) in enumerate(zip(results, want)) if a != b]
             raise AssertionError(f"{name}: cuda and torch substrates differ "
                                  f"on queries {bad[:5]}")
         log(f"  {name}: cuda answers equal the torch substrate's "
-            f"({len(results)} queries)")
+            f"({len(held)} queries)")
         answers[name] = results
         return c
 
@@ -438,6 +597,51 @@ def main() -> int:
     record(main_path("USPS plain cache_k=16", usps_plain_c, usps_small,
                      ("trie_walk", "topk_select")), "topk_select")
 
+    # bounded-edit completion: the built indexes reconfigured, no rebuild
+    for name, idx, must in (
+            ("USPS ET E=1", usps_et, ("locus_dp", "beam_topk")),
+            ("USPS ET packed E=1", usps_et_p,
+             ("locus_dp_packed", "beam_topk_packed")),
+            ("USPS ET cache_k=16 E=1", usps_et_c,
+             ("locus_dp", "locus_topk_merge")),
+            ("USPS ET packed cache_k=16 E=1", usps_et_pc,
+             ("locus_dp_packed", "locus_topk_merge"))):
+        tensors = idx.tensors
+        idx.reconfigure(edit_budget=1)
+        if idx.tensors is not tensors:
+            raise AssertionError(f"{name}: reconfigure rebuilt the index")
+        record(main_path(name, idx, usps, must, n_check=128), *must)
+        idx.reconfigure(edit_budget=0)
+    same_answers("USPS ET packed E=1", "USPS ET E=1")
+    same_answers("USPS ET packed cache_k=16 E=1", "USPS ET cache_k=16 E=1")
+    usps_et.reconfigure(edit_budget=2)
+    record(main_path("USPS ET E=2", usps_et, usps, ("locus_dp", "beam_topk"),
+                     n_check=64), "locus_dp", "beam_topk")
+    usps_et.reconfigure(edit_budget=0)
+
+    # the off-path ops entry points: one retrieval query over the
+    # candidates, one serving batch of bags
+    reset_counts()
+    top_s, top_i = ops.candidate_topk(cand_q, cands, CAND_K)
+    bag_out = ops.embedding_bag(bag_table, bag_idx, bag_off, bag_w,
+                                mode="sum")
+    torch.cuda.synchronize()
+    c = counts()
+    log(f"ops path: candidate_topk C={n_cand} k={CAND_K}, embedding_bag "
+        f"{BAGS} bags: launches {c}")
+    for k_name in ("candidate_topk", "embedding_bag"):
+        if c[k_name] <= 0:
+            raise AssertionError(f"ops path: {k_name} never launched")
+    if c["plain"]:
+        raise AssertionError("ops path: a plain version ran")
+    if not (torch.isfinite(top_s).all() and (top_i >= 0).all()
+            and top_i.unique().numel() == CAND_K
+            and (top_s[:-1] >= top_s[1:]).all()
+            and torch.isfinite(bag_out).all()
+            and bag_out.shape == (BAGS, BAG_D)):
+        raise AssertionError("ops path: malformed outputs")
+    record(c, "candidate_topk", "embedding_bag")
+
     # the paper's Figure 1 example, answered by hand, in every layout
     fig1 = (["andrew pavlo", "andrew parker", "andrew packard",
              "william smith", "bill of rights"], [50, 40, 30, 20, 10],
@@ -453,6 +657,15 @@ def main() -> int:
                 raise AssertionError(f"Figure 1 example, {kind} {opt}: {got}")
     log("Figure 1 example: tt/et/ht answers as expected, dense and packed, "
         "with and without a cache")
+    want_typo = [want_fig1[0], want_fig1[1], want_fig1[0], []]
+    for kind in ("tt", "et", "ht"):
+        for opt in ({}, {"compression": "packed", "cache_k": 4}):
+            got = rt.build_index(*fig1, kind=kind, device=dev, edit_budget=1,
+                                 **opt).complete(["andrw pa", "wiliam sm",
+                                                  "andy pz", "xyz"], k=3)
+            if got != want_typo:
+                raise AssertionError(f"Figure 1 typos, {kind} {opt}: {got}")
+    log("Figure 1 typos at edit_budget=1: tt/et/ht answers as expected")
 
     # -- phase 5: kernel times and bounds at the main path's shapes ---------------
     q, ql = batch(usps, seed=1)
@@ -491,6 +704,19 @@ def main() -> int:
     def select_library():
         top = torch.topk(sel_s, K, dim=1)
         return top.values, torch.gather(sel_p, 1, top.indices)
+
+    def cand_library():
+        top = torch.topk(torch.mv(cands, cand_q), CAND_K)
+        return top.values, top.indices
+
+    bag_dense = ops.densify_bags(bag_idx, bag_off, bag_w, None,
+                                 torch.float32, dev)
+    n_valid = int((bag_dense[0] >= 0).sum())
+
+    def bag_library():
+        return torch.nn.functional.embedding_bag(
+            bag_idx, bag_table, bag_off, mode="sum",
+            per_sample_weights=bag_w, include_last_offset=True)
 
     rows = []
     specs = [
@@ -565,6 +791,25 @@ def main() -> int:
          B * cfg_etp.frontier * 4 + B * K * 8
          + n_loci * (8 + CACHE_K * w_pc),
          n_loci * CACHE_K),
+        ("candidate_topk", "src/repro_torch/kernels/csrc/candidate_topk.cu",
+         "src/repro/kernels/candidate_topk.py:51",
+         lambda: candidate_topk.candidate_topk(cand_q, cands, CAND_K),
+         lambda: candidate_topk.candidate_topk_plain(cand_q, cands, CAND_K),
+         cand_library,
+         # the candidates and the query read once, the top-k written once;
+         # a multiply-add per candidate value
+         n_cand * CAND_D * 4 + CAND_D * 4 + CAND_K * 8,
+         2 * n_cand * CAND_D),
+        ("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+         "src/repro/kernels/embedding_bag.py:41",
+         lambda: embedding_bag.embedding_bag_dense(bag_table, *bag_dense),
+         lambda: embedding_bag.embedding_bag_dense_plain(bag_table,
+                                                         *bag_dense),
+         bag_library,
+         # one float32 table row per valid index, the dense indices and
+         # weights, the output; a multiply-add per gathered value
+         n_valid * BAG_D * 4 + bag_dense[0].numel() * 8 + BAGS * BAG_D * 4,
+         2 * n_valid * BAG_D),
     ]
     saved = counts()
     for name, source, replaces, kern, plain, library, nbytes, ops in specs:
@@ -583,6 +828,18 @@ def main() -> int:
     log("time locus_topk_merge on the dense cache, same loci: "
         f"{cuda_ms(lambda: locus_merge.locus_topk_merge(tc, loci_et, K), 20):.4f}"
         " ms")
+    for e in (1, 2):
+        for name, tt, cfg in (("locus_dp", t_et, cfg_et),
+                              ("locus_dp_packed", t_etp, cfg_etp)):
+            cfg_e = replace(cfg, edit_budget=e)
+            ls = locus_dp.launch_shape(cfg_e, L_BUCKET)
+            ms = cuda_ms(lambda: locus_dp.locus_dp_walk(tt, cfg_e, q, ql), 20)
+            plain_ms = cuda_ms(
+                lambda: locus_dp.locus_dp_plain(tt, cfg_e, q, ql), 3)
+            log(f"time {name} E={e} (F={cfg_e.frontier}, BW="
+                f"{cfg_e.branch_width}, cand={ls.cand}, {ls.threads} "
+                f"threads, {ls.shared} B shared): {ms:.4f} ms kernel, "
+                f"{plain_ms:.4f} ms plain")
     for k_name, (mod, attr) in counters.items():
         setattr(mod, attr, saved[k_name])
     log("build seconds: " + json.dumps(

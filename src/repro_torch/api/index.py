@@ -121,6 +121,9 @@ class CompletionIndex:
         self.stats = stats
         self.device = torch.device(device)
         self.tensors = _to_device(trie, rule_trie, self.device)
+        #: queries re-run by each widened retry round (1st, 2nd, 3rd),
+        #: summed over every lookup since the index was made
+        self.retried = [0, 0, 0]
 
     @classmethod
     def from_parts(cls, trie, rule_trie, rules, strings, scores, cfg,
@@ -218,6 +221,7 @@ class CompletionIndex:
             cfg = replace(cfg, frontier=cfg.frontier * 2, gens=cfg.gens * 4,
                           max_steps=cfg.max_steps * 4, use_cache=False)
             sub = np.nonzero(bad)[0]
+            self.retried[tries] += len(sub)
             Sb = bucket_size(len(sub), minimum=1)
             pad_sub = np.pad(sub, (0, Sb - len(sub)))  # repeat row 0: harmless
             s2, i2, e2 = self._run(qs[pad_sub], qlens[pad_sub], k, cfg)

@@ -30,7 +30,6 @@ from repro_torch.core import trie_build as tb
 from repro_torch.core.engine.structs import EngineConfig, resolve_device
 from repro_torch.core.engine.substrate import (available_substrates,
                                                resolve_substrate)
-from repro_torch.not_ported import not_ported
 
 _SUPPORTED_VERSIONS = (1, 2, 3, 4)
 _META_KEY = "__meta__"
@@ -68,10 +67,7 @@ def engine_config(cfg, trie: tb.DictTrie, rule_trie: tb.RuleTrie,
         kw.update(tele_width=trie.tele_plane.shape[1],
                   walk_tile=trie.walk_tile, emit_tile=trie.emit_tile,
                   link_tile=trie.link_tile)
-    out = EngineConfig(**kw)
-    if out.edit_budget:
-        raise not_ported("edits")
-    return out
+    return EngineConfig(**kw)
 
 
 def load_index_parts(path: str, device) -> dict:

@@ -35,7 +35,10 @@ class IndexSpec:
         tables, "packed" the compressed layout (chain-collapsed sparse
         side tables, u8/u16 tiers, a quantized cache); answers are
         bit-identical.
-    edit_budget: bounded-edit matching (only 0 is ported).
+    edit_budget: bounded-edit (typo-tolerant) matching: up to this many
+        single-character edits (substitute, insert, delete) on the
+        dictionary side of a match, 0-2; a runtime knob
+        (``CompletionIndex.reconfigure(edit_budget=...)``).  0 = exact.
     """
 
     kind: str = "et"
@@ -76,8 +79,6 @@ class IndexSpec:
         if not 0 <= self.edit_budget <= 2:
             raise ValueError(
                 f"edit_budget must be in [0, 2], got {self.edit_budget}")
-        if self.edit_budget > 0:
-            raise not_ported("edits")
         return self
 
     def validate_sharded(self) -> "IndexSpec":

@@ -106,6 +106,34 @@ def syn_children(t, nodes, ch):
                      SYN_UNARY, nodes, ch)
 
 
+def dict_child_window(t, nodes, width: int):
+    """All dict children of each node: (chars, children) [..., width],
+    -1 padded — the packed mirror of the dense ``first_child`` row window
+    that feeds the substitute and delete transitions.  A unary node's
+    window is its single (label, v+1) pair in column 0; a branching node
+    reads its ``b_*`` row, found by a rank lookup in ``b_ids``."""
+    n_nodes = int(t.p_labels.shape[0])
+    valid = nodes >= 0
+    n = torch.where(valid, nodes, 0).long()
+    fl = widen(t.p_flags, n)
+    lbl = widen(t.p_labels, (n + 1).clamp(0, n_nodes - 1))
+    js = torch.arange(width, device=nodes.device)
+    u_ok = (((fl & DICT_UNARY) != 0) & valid)[..., None] & (js == 0)
+    chars = torch.where(u_ok, lbl[..., None], NEG_ONE).to(torch.int32)
+    children = torch.where(u_ok, (n + 1)[..., None], NEG_ONE).to(torch.int32)
+    n_edges = int(t.b_char.shape[0])
+    if int(t.b_ids.shape[0]) == 0 or n_edges == 0:
+        return chars, children
+    rc, isrow = _rank(t.b_ids, n)
+    lo = t.b_ptr[rc].long()
+    cnt = torch.where(isrow & valid, t.b_ptr[rc + 1].long() - lo, 0)
+    idx = (lo[..., None] + js).clamp(0, n_edges - 1)
+    m = js < cnt[..., None]
+    chars = torch.where(m, widen(t.b_char, idx), chars)
+    children = torch.where(m, t.b_child[idx].to(torch.int32), children)
+    return chars, children
+
+
 def tele_rows(t, nodes):
     """Teleport-target rows [..., tele_width]; all -1 for nodes without
     teleports and for -1 slots (== the dense ``tele_plane`` gather)."""

@@ -110,8 +110,10 @@ class EngineConfig:
     max_steps: int = 256        # beam step cap
     rule_matches: int = 0       # M: max lhs matches per query position
     max_lhs_len: int = 0        # rule-trie walk depth
-    edit_budget: int = 0        # bounded-edit mode (only 0 is ported)
-    branch_width: int = 1       # max dict fanout
+    # bounded-edit mode: frontier entries become the int32 states
+    # ``node * (edit_budget + 1) + edits_used``
+    edit_budget: int = 0        # E: max edits spent matching the query
+    branch_width: int = 1       # max dict fanout (child-window width)
     max_terms_per_node: int = 1
     teleports: int = 0          # Ts: max teleport targets per node
     # column counts of tele_plane / r_term_plane (always >= 1)

@@ -1,5 +1,5 @@
-// Fused synonym-aware locus DP (phase 1 for tt/et/ht, edit budget 0) on
-// Hopper (sm_90a).
+// Fused synonym-aware locus DP (phase 1 for tt/et/ht and every packed
+// index, at edit budget 0, 1 or 2) on Hopper (sm_90a).
 //
 // Replaces the Pallas kernels repro/kernels/locus_dp.py:732
 // `locus_dp_walk` (tables resident in VMEM), :773 `locus_dp_walk_streamed`
@@ -22,22 +22,38 @@
 // The merges, the overflow counts and the antichain step are therefore
 // one code for both layouts — the counts decide `exact` and the retry.
 //
+// Bounded-edit mode (edit budget E > 0): a frontier entry is the state
+// node*(E+1)+d, d the edits spent so far (E = 0 is the identity).  The
+// literal step gains substitute (every other dict child at d+1) and insert
+// (stay put at d+1, refused at synonym nodes) parts, and every completed
+// row gains E delete rounds (every dict child at d+1, no character
+// consumed) after its teleports.  Teleports and rule steps carry d
+// through.  A node's dict children come from its child window: the
+// first_child row (dense) or the unary label / the rank-looked-up b_* row
+// (packed), read once per frontier entry before the candidates are formed.
+//
 // One thread block per query.  The (L+1, F) frontier buffer lives in
-// dynamic shared memory for the whole sweep.  At each position i:
+// dynamic shared memory for the whole sweep, and so do the candidate,
+// scan and scan2 rows of one merge when they fit; past the 227 KB a block
+// may have, the wrapper gives each block a slice of a device-memory
+// workspace for them (and, past that, for the frontier too).  At each
+// position i:
 //   - literal step: row i+1 gets the dict and synonym children of row i
-//     labelled q[i] (one lower-bound search per frontier entry);
+//     labelled q[i] (one lower-bound search per frontier entry), and at
+//     E > 0 the insert and substitute states;
 //   - rule steps: thread 0 descends the rule trie from position i; every
 //     full-lhs match (at most `rule_matches` per position, counted per
 //     term) looks up (anchor, rule) in the link store for each dict node
 //     of row i and merges the targets into the row where the lhs ends —
 //     only when some target exists;
 //   - write-back: row i+1 is complete, so its teleport targets are merged
-//     in.
+//     in, then the E delete rounds.
 // Every merge is a block-wide bitonic sort of the candidate row (padded to
 // a power of two with INT_MAX for empty) and a prefix-sum compaction: ids
 // ascending, the first F kept, overflow += max(uniques - F, 0) — exactly
 // `dedup_pad`.  The final row drops synonym loci, is deduplicated again,
 // and loses every id covered by another's preorder interval [id, tout).
+// The states are decoded to nodes before that step.
 //
 // Bound: the bytes a query must read are a pointer pair, a few characters
 // and a child per live frontier entry and position, plus teleport and link
@@ -74,7 +90,23 @@ struct Shape {
   int max_lhs_len;
   int max_terms;
   int cand_cap;
+  int edit_budget;    // E
+  int branch_width;   // BW: the widest child window
+  int buf_in_ws;      // the frontier rows live in the workspace
+  int cand_in_ws;     // the candidate / scan rows live in the workspace
+  long long ws_stride;   // workspace ints of one block
 };
+
+// A frontier state's node and edit count (E1 = E + 1); -1 -> (-1, 0).
+__device__ __forceinline__ int state_node(int st, int e1) {
+  return st < 0 ? -1 : st / e1;
+}
+__device__ __forceinline__ int state_edits(int st, int e1) {
+  return st < 0 ? 0 : st % e1;
+}
+__device__ __forceinline__ int encode(int node, int d, int e1) {
+  return node < 0 ? -1 : node * e1 + d;
+}
 
 __device__ __forceinline__ int pow2_at_least(int n) {
   int p = 1;
@@ -144,6 +176,21 @@ struct DenseTables {
   }
   __device__ bool is_syn(int node) const { return syn_mask[node] != 0; }
   __device__ int tout(int node) const { return tout_arr[node]; }
+  // child window of node (>= 0): its first_child row [lo, lo + cnt)
+  __device__ void window(int node, int* lo, int* cnt) const {
+    if (n_edges == 0) {
+      *lo = 0;
+      *cnt = 0;
+      return;
+    }
+    *lo = first_child[node];
+    *cnt = first_child[node + 1] - *lo;
+  }
+  // column w < cnt of a window: (character, child)
+  __device__ void window_at(int lo, int w, int* ch, int* child) const {
+    *ch = edge_char[lo + w];
+    *child = edge_child[lo + w];
+  }
   __device__ int link(int anchor, int rid) const {
     if (anchor < 0 || n_links == 0) return -1;
     return link_in_row(link_rule, link_target, link_ptr[anchor],
@@ -235,6 +282,31 @@ struct PackedTables {
   __device__ bool is_syn(int node) const {
     return (flags[node] & tables::kIsSyn) != 0;
   }
+  // child window of node (>= 0): a branching node's b_* row [lo, lo+cnt),
+  // or a unary node's one (label, v+1) pair, marked by lo = -(node + 2)
+  __device__ void window(int node, int* lo, int* cnt) const {
+    const int r = rank_exact(b_ids, n_b, node);
+    if (r >= 0 && b_ptr[r + 1] > b_ptr[r]) {
+      *lo = b_ptr[r];
+      *cnt = b_ptr[r + 1] - b_ptr[r];
+    } else if ((flags[node] & tables::kDictUnary) && node + 1 < n_nodes) {
+      *lo = -(node + 2);
+      *cnt = 1;
+    } else {
+      *lo = 0;
+      *cnt = 0;
+    }
+  }
+  __device__ void window_at(int lo, int w, int* ch, int* child) const {
+    if (lo < 0) {
+      const int node = -lo - 2;
+      *ch = (int)labels[node + 1];
+      *child = node + 1;
+    } else {
+      *ch = (int)b_char[lo + w];
+      *child = b_child[lo + w];
+    }
+  }
   // a dict node reads its chain representative: the first stored id at
   // or after it (the clipped lower bound over c_ids)
   __device__ int tout(int node) const {
@@ -310,10 +382,10 @@ __device__ int sort_compact(int* cand, int n, int* out, int width,
   return total > width ? total - width : 0;
 }
 
-// row [F] += its teleport targets, deduplicated back to [F]; returns the
-// overflow of the merge.
+// row [F] += its teleport targets (each at its source's edit count),
+// deduplicated back to [F]; returns the overflow of the merge.
 template <class T>
-__device__ int tele_expand(const T& t, int* row, int F, int* cand,
+__device__ int tele_expand(const T& t, int* row, int F, int e1, int* cand,
                            int* scan, int* scan2) {
   const int tw = t.tele_width;
   const int total = F * (1 + tw);
@@ -323,8 +395,11 @@ __device__ int tele_expand(const T& t, int* row, int F, int* cand,
     if (j < F) {
       v = row[j];
     } else if (j < total) {
-      const int node = row[(j - F) / tw];
-      if (node >= 0) v = t.tele(node, (j - F) % tw);
+      const int st = row[(j - F) / tw];
+      const int node = state_node(st, e1);
+      if (node >= 0) {
+        v = encode(t.tele(node, (j - F) % tw), state_edits(st, e1), e1);
+      }
     }
     cand[j] = v < 0 ? kIntMax : v;
   }
@@ -332,10 +407,70 @@ __device__ int tele_expand(const T& t, int* row, int F, int* cand,
   return sort_compact(cand, n, row, F, scan, scan2);
 }
 
+// The child window of every state of row [F] into (lo[f], cnt[f]); cnt is
+// 0 for an empty slot and for a state with no edit left (d == E).
+// Returns synchronised.
+template <class T>
+__device__ void row_windows(const T& t, const int* row, int F, int E,
+                            int* lo, int* cnt) {
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+    const int node = state_node(row[f], E + 1);
+    int l = 0;
+    int c = 0;
+    if (node >= 0 && state_edits(row[f], E + 1) < E) t.window(node, &l, &c);
+    lo[f] = l;
+    cnt[f] = c;
+  }
+  __syncthreads();
+}
+
+// One delete round over row [F]: every dict child of a state with d < E,
+// at d+1, merged into the row; returns the overflow of the merge.  The
+// windows sit in scan/scan2 until the candidates are formed.
+template <class T>
+__device__ int delete_round(const T& t, int* row, int F, int E, int BW,
+                            int* cand, int* scan, int* scan2) {
+  row_windows(t, row, F, E, scan, scan2);
+  const int total = F * (1 + BW);
+  const int n = pow2_at_least(total);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    int v = -1;
+    if (j < F) {
+      v = row[j];
+    } else if (j < total) {
+      const int f = (j - F) / BW;
+      const int w = (j - F) % BW;
+      if (w < scan2[f]) {
+        int ch, child;
+        t.window_at(scan[f], w, &ch, &child);
+        v = encode(child, state_edits(row[f], E + 1) + 1, E + 1);
+      }
+    }
+    cand[j] = v < 0 ? kIntMax : v;
+  }
+  __syncthreads();
+  return sort_compact(cand, n, row, F, scan, scan2);
+}
+
+// The fixpoint of a completed row: its teleports, then E delete rounds.
+template <class T>
+__device__ int expand_row(const T& t, int* row, int F, int E, int BW,
+                          int* cand, int* scan, int* scan2) {
+  int overflow = 0;
+  if (t.teleports > 0) {
+    overflow += tele_expand(t, row, F, E + 1, cand, scan, scan2);
+  }
+  for (int r = 0; r < E; ++r) {
+    overflow += delete_round(t, row, F, E, BW, cand, scan, scan2);
+  }
+  return overflow;
+}
+
 template <class T>
 __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
                                 const int* __restrict__ queries,
                                 const int* __restrict__ qlens,
+                                int* __restrict__ workspace,
                                 int* __restrict__ loci_out,
                                 int* __restrict__ overflow_out) {
   extern __shared__ int smem[];
@@ -343,42 +478,88 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
   const int L = s.seq_len;
   const int M = s.rule_matches;
   const int C = s.cand_cap;
-  int* buf = smem;                     // (L + 1) * F frontier rows
-  int* cand = buf + (L + 1) * F;       // C candidates of one merge
+  const int E = s.edit_budget;
+  const int E1 = E + 1;
+  const int BW = s.branch_width;
+  const int b = blockIdx.x;
+  int* sm = smem;
+  int* ws = workspace == nullptr ? nullptr
+                                 : workspace + (long long)b * s.ws_stride;
+  int* buf;                            // (L + 1) * F frontier rows
+  if (s.buf_in_ws) {
+    buf = ws;
+    ws += (L + 1) * F;
+  } else {
+    buf = sm;
+    sm += (L + 1) * F;
+  }
+  int* cand;                           // C candidates of one merge
+  if (s.cand_in_ws) {
+    cand = ws;
+  } else {
+    cand = sm;
+    sm += 3 * C;
+  }
   int* scan = cand + C;                // C
   int* scan2 = scan + C;               // C
-  int* q = scan2 + C;                  // L query characters
+  int* q = sm;                         // L query characters
   int* m_rule = q + L;                 // M rule matches of one position
   int* m_end = m_rule + (M > 0 ? M : 1);
   __shared__ int n_match;
 
-  const int b = blockIdx.x;
   const int* qrow = queries + (long long)b * L;
   for (int i = threadIdx.x; i < (L + 1) * F; i += blockDim.x) buf[i] = -1;
   for (int i = threadIdx.x; i < L; i += blockDim.x) q[i] = qrow[i];
   __syncthreads();
-  if (threadIdx.x == 0) buf[0] = 0;   // the root
+  if (threadIdx.x == 0) buf[0] = 0;   // the root at d=0 encodes to 0
   __syncthreads();
 
-  int overflow = 0;   // the same in every thread: merges return it to all
-  if (t.teleports > 0) overflow += tele_expand(t, buf, F, cand, scan, scan2);
+  // the same in every thread: merges return it to all
+  int overflow = expand_row(t, buf, F, E, BW, cand, scan, scan2);
 
+  const int has_syn = t.has_syn() ? 1 : 0;
   for (int i = 0; i < L; ++i) {
     const int* row = buf + i * F;
     int* nxt = buf + (i + 1) * F;
     const int c = q[i];
 
-    // literal step: row i+1 U dict children U synonym children
-    const int parts = t.has_syn() ? 3 : 2;
-    const int n = pow2_at_least(parts * F);
+    // literal step: row i+1 U dict children U synonym children, and at
+    // E > 0 U insert states U substitute states (segments of F, F, F,
+    // F and F*BW candidates)
+    const bool edits = E > 0 && c >= 0;
+    if (edits) row_windows(t, row, F, E, scan, scan2);
+    const int off_ins = (2 + has_syn) * F;
+    const int off_sub = off_ins + (edits ? F : 0);
+    const int total = off_sub + (edits ? F * BW : 0);
+    const int n = pow2_at_least(total);
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       int v = -1;
       if (j < F) {
         v = nxt[j];
-      } else if (j < 2 * F) {
-        v = t.dict_child(row[j - F], c);
-      } else if (j < parts * F) {
-        v = t.syn_child(row[j - 2 * F], c);
+      } else if (j < off_ins) {
+        const int f = j < 2 * F ? j - F : j - 2 * F;
+        const int st = row[f];
+        const int node = state_node(st, E1);
+        const int ch = j < 2 * F ? t.dict_child(node, c)
+                                 : t.syn_child(node, c);
+        v = encode(ch, state_edits(st, E1), E1);
+      } else if (j < off_sub) {
+        // insert: the query has an extra character; mid-variant
+        // (synonym) nodes absorb none
+        const int st = row[j - off_ins];
+        const int node = state_node(st, E1);
+        const int d = state_edits(st, E1);
+        if (node >= 0 && d < E && !t.is_syn(node)) v = node * E1 + d + 1;
+      } else if (j < total) {
+        // substitute: every dict child not labelled c (the matching one
+        // rides the literal part); the window is empty at d == E
+        const int f = (j - off_sub) / BW;
+        const int w = (j - off_sub) % BW;
+        if (w < scan2[f]) {
+          int ch, child;
+          t.window_at(scan[f], w, &ch, &child);
+          if (ch != c) v = encode(child, state_edits(row[f], E1) + 1, E1);
+        }
       }
       cand[j] = v < 0 ? kIntMax : v;
     }
@@ -413,9 +594,11 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
         int* dst = buf + m_end[m] * F;
         int any = 0;
         for (int j = threadIdx.x; j < F; j += blockDim.x) {
-          const int a = row[j];
+          const int a = state_node(row[j], E1);
           int tg = -1;
-          if (a >= 0 && !t.is_syn(a)) tg = t.link(a, rid);
+          if (a >= 0 && !t.is_syn(a)) {
+            tg = encode(t.link(a, rid), state_edits(row[j], E1), E1);
+          }
           cand[F + j] = tg < 0 ? kIntMax : tg;
           any |= tg >= 0;
         }
@@ -436,9 +619,7 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
     }
 
     // write-back: row i+1 is complete (rule ends are > i), expand it
-    if (t.teleports > 0) {
-      overflow += tele_expand(t, nxt, F, cand, scan, scan2);
-    }
+    overflow += expand_row(t, nxt, F, E, BW, cand, scan, scan2);
   }
 
   // finalize the row at the query's own length
@@ -447,7 +628,7 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
   const int* row = buf + ql * F;
   const int n = pow2_at_least(F);
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int v = j < F ? row[j] : -1;
+    int v = j < F ? state_node(row[j], E1) : -1;   // states -> nodes
     if (v >= 0 && t.is_syn(v)) v = -1;
     cand[j] = v < 0 ? kIntMax : v;
   }
@@ -479,7 +660,8 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
 template <class T>
 int launch(const T& t, const RuleTables& r, const Shape& s, int threads,
            int shared_bytes, const void* queries, const void* qlens,
-           int batch, void* loci_out, void* overflow_out, void* stream) {
+           int batch, void* workspace, void* loci_out, void* overflow_out,
+           void* stream) {
   if (batch > 0) {
     cudaError_t err = cudaFuncSetAttribute(
         locus_dp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -487,8 +669,8 @@ int launch(const T& t, const RuleTables& r, const Shape& s, int threads,
     if (err != cudaSuccess) return (int)err;
     locus_dp_kernel<T><<<batch, threads, shared_bytes,
                          (cudaStream_t)stream>>>(
-        t, r, s, (const int*)queries, (const int*)qlens, (int*)loci_out,
-        (int*)overflow_out);
+        t, r, s, (const int*)queries, (const int*)qlens, (int*)workspace,
+        (int*)loci_out, (int*)overflow_out);
   }
   return (int)cudaGetLastError();
 }
@@ -507,7 +689,8 @@ RuleTables rule_tables(const void* r_first_child, const void* r_edge_char,
 }
 
 Shape shape(int frontier, int seq_len, int rule_matches, int max_lhs_len,
-            int max_terms, int cand_cap) {
+            int max_terms, int cand_cap, int edit_budget, int branch_width,
+            int buf_in_ws, int cand_in_ws, long long ws_stride) {
   Shape s;
   s.frontier = frontier;
   s.seq_len = seq_len;
@@ -515,6 +698,11 @@ Shape shape(int frontier, int seq_len, int rule_matches, int max_lhs_len,
   s.max_lhs_len = max_lhs_len;
   s.max_terms = max_terms;
   s.cand_cap = cand_cap;
+  s.edit_budget = edit_budget;
+  s.branch_width = branch_width;
+  s.buf_in_ws = buf_in_ws;
+  s.cand_in_ws = cand_in_ws;
+  s.ws_stride = ws_stride;
   return s;
 }
 
@@ -529,9 +717,11 @@ extern "C" int locus_dp_launch(
     int n_links, const void* r_first_child, const void* r_edge_char,
     const void* r_edge_child, int n_r_edges, const void* r_term_plane,
     int term_width, int frontier, int seq_len, int rule_matches,
-    int max_lhs_len, int max_terms, int cand_cap, int threads,
-    int shared_bytes, const void* queries, const void* qlens, int batch,
-    void* loci_out, void* overflow_out, void* stream) {
+    int max_lhs_len, int max_terms, int cand_cap, int edit_budget,
+    int branch_width, int buf_in_ws, int cand_in_ws, long long ws_stride,
+    int threads, int shared_bytes, const void* queries, const void* qlens,
+    int batch, void* workspace, void* loci_out, void* overflow_out,
+    void* stream) {
   DenseTables t;
   t.first_child = (const int*)first_child;
   t.edge_char = (const int*)edge_char;
@@ -554,9 +744,10 @@ extern "C" int locus_dp_launch(
                 rule_tables(r_first_child, r_edge_char, r_edge_child,
                             n_r_edges, r_term_plane, term_width),
                 shape(frontier, seq_len, rule_matches, max_lhs_len,
-                      max_terms, cand_cap),
-                threads, shared_bytes, queries, qlens, batch, loci_out,
-                overflow_out, stream);
+                      max_terms, cand_cap, edit_budget, branch_width,
+                      buf_in_ws, cand_in_ws, ws_stride),
+                threads, shared_bytes, queries, qlens, batch, workspace,
+                loci_out, overflow_out, stream);
 }
 
 extern "C" int locus_dp_packed_launch(
@@ -571,8 +762,10 @@ extern "C" int locus_dp_packed_launch(
     const void* r_edge_char, const void* r_edge_child, int n_r_edges,
     const void* r_term_plane, int term_width, int frontier, int seq_len,
     int rule_matches, int max_lhs_len, int max_terms, int cand_cap,
-    int threads, int shared_bytes, const void* queries, const void* qlens,
-    int batch, void* loci_out, void* overflow_out, void* stream) {
+    int edit_budget, int branch_width, int buf_in_ws, int cand_in_ws,
+    long long ws_stride, int threads, int shared_bytes, const void* queries,
+    const void* qlens, int batch, void* workspace, void* loci_out,
+    void* overflow_out, void* stream) {
   PackedTables t;
   t.labels = (const unsigned char*)labels;
   t.flags = (const unsigned char*)flags;
@@ -606,9 +799,10 @@ extern "C" int locus_dp_packed_launch(
                 rule_tables(r_first_child, r_edge_char, r_edge_child,
                             n_r_edges, r_term_plane, term_width),
                 shape(frontier, seq_len, rule_matches, max_lhs_len,
-                      max_terms, cand_cap),
-                threads, shared_bytes, queries, qlens, batch, loci_out,
-                overflow_out, stream);
+                      max_terms, cand_cap, edit_budget, branch_width,
+                      buf_in_ws, cand_in_ws, ws_stride),
+                threads, shared_bytes, queries, qlens, batch, workspace,
+                loci_out, overflow_out, stream);
 }
 
 extern "C" const char* locus_dp_error_string(int err) {

@@ -1,4 +1,4 @@
-"""CUDA kernel: fused synonym-aware locus DP (phase 1, e=0).
+"""CUDA kernel: fused synonym-aware locus DP (phase 1, edit budget 0-2).
 
 Replaces ``repro/kernels/locus_dp.py:732`` ``locus_dp_walk``, ``:773``
 ``locus_dp_walk_streamed``, ``:832`` ``locus_dp_walk_packed`` and ``:871``
@@ -12,14 +12,21 @@ One thread block per
 query keeps the whole (L+1, F) frontier buffer in shared memory; every
 merge is a block-wide bitonic sort of the candidate row and a prefix-sum
 compaction, bit-identical to ``dedup_pad`` (ids ascending, first F kept,
-overflow += max(uniques - F, 0)).
+overflow += max(uniques - F, 0)).  At an edit budget E > 0 the frontier
+holds the states ``node*(E+1)+d`` and the sweep adds the substitute,
+insert and delete transitions of ``core/engine/locus.py``; every merge
+stays one merge, so the overflow counts are the reference's.
 
 Bound on the H100: block-wide synchronisation and dependent table loads,
 not bandwidth — a query reads a few bytes per live frontier entry and
 position.  The frontier never leaves shared memory between positions.
 
-Shared memory is sized from (L, F, tele_width); a shape that needs more
-than a block may have (227 KB) raises — there is no fallback.
+Shared memory is sized from (L, F, tele_width, E, branch_width).  When
+the candidate rows of the largest merge do not fit beside the frontier in
+the 227 KB a block may have (the widened retry at E > 0 reaches
+F·(4+BW) ≈ 10k candidates), each block gets a slice of a device-memory
+workspace for them, allocated here with ``torch.empty``, and past that for
+the frontier rows too; only a block slice past int32 offsets raises.
 
 :func:`locus_dp_walk` launches the kernel for CUDA tensors and answers CPU
 tensors with :func:`locus_dp_plain`, the plain PyTorch version
@@ -29,6 +36,7 @@ tensors with :func:`locus_dp_plain`, the plain PyTorch version
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,7 +44,6 @@ from repro_torch.core.engine import locus
 from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import DeviceTrie, EngineConfig
 from repro_torch.kernels import _build
-from repro_torch.not_ported import not_ported
 
 #: kernel launches on the dense layout (each :func:`locus_dp_walk` call on
 #: CUDA tensors of a dense index adds one) and on the packed layout
@@ -46,7 +53,7 @@ packed_launches = 0
 #: the plain version: the engine's reference frontier DP
 locus_dp_plain = locus.locus_dp
 
-_V, _I = ctypes.c_void_p, ctypes.c_int
+_V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _pow2(n: int) -> int:
@@ -56,24 +63,58 @@ def _pow2(n: int) -> int:
     return p
 
 
-def launch_shape(cfg: EngineConfig, seq_len: int):
-    """(candidate capacity, threads, shared bytes) of one block; raises
-    when the shared memory exceeds what a block may have."""
+class LaunchShape(NamedTuple):
+    cand: int          # candidate capacity of one merge (a power of two)
+    threads: int
+    shared: int        # dynamic shared bytes of one block
+    buf_in_ws: int     # the (L+1, F) frontier rows live in the workspace
+    cand_in_ws: int    # the candidate, scan and scan2 rows do
+    ws_stride: int     # workspace int32s of one block (0: no workspace)
+
+
+def merge_widths(cfg: EngineConfig) -> dict[str, int]:
+    """Candidates of each merge of one sweep step: the literal step (the
+    next row, dict and synonym children, and at E > 0 the insert and
+    F·BW substitute states), a rule step, a delete round and a teleport
+    expansion."""
+    F, BW = cfg.frontier, cfg.branch_width
+    edits = cfg.edit_budget > 0
+    return {"literal": F * (3 + (1 + BW if edits else 0)),
+            "rule": 2 * F,
+            "delete": F * (1 + BW) if edits else 0,
+            "teleport": F * (1 + cfg.tele_width) if cfg.teleports else 0}
+
+
+def launch_shape(cfg: EngineConfig, seq_len: int) -> LaunchShape:
+    """Where one block keeps its rows: all in shared memory when they fit
+    the 227 KB a block may have, else the candidate rows (then the
+    frontier too) in a device-memory workspace slice."""
     F = cfg.frontier
-    cand = _pow2(max(3 * F, F * (1 + cfg.tele_width) if cfg.teleports else 0))
+    cand = _pow2(max(merge_widths(cfg).values()))
     threads = min(1024, max(32, cand // 2))
-    ints = (seq_len + 1) * F + 3 * cand + seq_len + 2 * max(cfg.rule_matches, 1)
-    shared = 4 * ints
-    if shared > _build.MAX_SHARED_BYTES:
+    frontier = (seq_len + 1) * F
+    small = seq_len + 2 * max(cfg.rule_matches, 1)
+    for buf_in_ws, cand_in_ws in ((0, 0), (0, 1), (1, 1)):
+        shared = 4 * (small + (0 if buf_in_ws else frontier)
+                      + (0 if cand_in_ws else 3 * cand))
+        if shared <= _build.MAX_SHARED_BYTES:
+            break
+    stride = 3 * cand * cand_in_ws + frontier * buf_in_ws
+    if shared > _build.MAX_SHARED_BYTES or stride >= 2**31:
         raise ValueError(
-            f"locus_dp: L={seq_len}, F={F}, tele_width={cfg.tele_width} "
-            f"need {shared} bytes of shared memory per block, more than "
-            f"the {_build.MAX_SHARED_BYTES} a block may have")
-    return cand, threads, shared
+            f"locus_dp: L={seq_len}, F={F}, E={cfg.edit_budget}, "
+            f"branch_width={cfg.branch_width}, "
+            f"tele_width={cfg.tele_width} need {4 * frontier} B of "
+            f"frontier and {12 * cand} B of candidate rows per block: "
+            f"{shared} B of shared memory (at most "
+            f"{_build.MAX_SHARED_BYTES}) and a workspace slice of "
+            f"{stride} int32s (below 2**31)")
+    return LaunchShape(cand, threads, shared, buf_in_ws, cand_in_ws, stride)
 
 
-#: the shape and rule-trie arguments both entry points end with
-_TAIL = ([_V, _V, _V, _I, _V, _I] + [_I] * 8 + [_V, _V, _I, _V, _V, _V])
+#: the rule-trie, shape and output arguments both entry points end with
+_TAIL = ([_V, _V, _V, _I, _V, _I] + [_I] * 10 + [_LL, _I, _I]
+         + [_V, _V, _I, _V, _V, _V, _V])
 
 
 def _lib():
@@ -154,8 +195,7 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
     global launches, packed_launches
     if queries.device.type == "cpu":
         return locus_dp_plain(t, cfg, queries, qlens)
-    if cfg.edit_budget:
-        raise not_ported("edits")
+    locus.check_state_range(t, cfg)
     dev = queries.device
     rule = dict(r_first_child=t.r_first_child, r_edge_char=t.r_edge_char,
                 r_edge_child=t.r_edge_child, r_term_plane=t.r_term_plane)
@@ -170,10 +210,12 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
         head = _dense_tables(t, dev) + (cfg.teleports, _build.ptr(t.link_ptr))
     B, L = queries.shape
     F = cfg.frontier
-    cand, threads, shared = launch_shape(cfg, L)
+    ls = launch_shape(cfg, L)
     loci = torch.empty((B, F), dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.int32, device=dev)
     p = _build.ptr
+    ws = (torch.empty(B * ls.ws_stride, dtype=torch.int32, device=dev)
+          if ls.ws_stride else None)
     fn = _lib_packed() if packed else _lib()
     err = fn(
         *head, p(t.link_rule), p(t.link_target), int(t.link_rule.shape[0]),
@@ -181,8 +223,10 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
         int(t.r_edge_char.shape[0]), p(t.r_term_plane),
         int(t.r_term_plane.shape[1]),
         F, L, cfg.rule_matches, cfg.max_lhs_len, cfg.max_terms_per_node,
-        cand, threads, shared,
-        p(queries), p(qlens), B, p(loci), p(overflow), _build.stream(dev))
+        ls.cand, cfg.edit_budget, cfg.branch_width, ls.buf_in_ws,
+        ls.cand_in_ws, ls.ws_stride, ls.threads, ls.shared,
+        p(queries), p(qlens), B, None if ws is None else p(ws), p(loci),
+        p(overflow), _build.stream(dev))
     _build.check_launch("locus_dp", err)
     if packed:
         packed_launches += 1

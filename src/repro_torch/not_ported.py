@@ -7,7 +7,6 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "edits": (3, "edit_budget > 0 (bounded-edit matching)"),
     "sessions": (4, "incremental sessions"),
     "scheduler": (5, "the keystroke scheduler (batching=True)"),
     "reranking": (5, "reranking"),

@@ -88,7 +88,7 @@ def test_auto_substrate_follows_the_device():
         resolve_substrate("jnp", "cpu")
 
 
-SPEC_OPTIONS = [dict(edit_budget=1), dict(kind="multiterm")]
+SPEC_OPTIONS = [dict(kind="multiterm")]
 
 
 @pytest.mark.parametrize("opt", SPEC_OPTIONS, ids=lambda o: next(iter(o)))
@@ -104,7 +104,6 @@ SURFACES = [
     ("update_score", lambda i: i.update_score("andrew pavlo", 9)),
     ("compact", lambda i: i.compact()),
     ("save", lambda i: i.save("x.npz")),
-    ("edit_budget", lambda i: i.reconfigure(edit_budget=1)),
     ("sharded", lambda i: i.spec.validate_sharded()),
     ("service_batching", lambda i: rt.CompletionService(i, batching=True)),
     ("service_reranker",
@@ -125,7 +124,9 @@ def test_no_fallback_between_kernel_and_plain_version():
     """No try/except on the query path: a kernel that cannot run raises."""
     for mod in ("kernels/trie_walk.py", "kernels/locus_dp.py",
                 "kernels/beam_topk.py", "kernels/topk_select.py",
-                "kernels/locus_merge.py", "core/engine/substrate.py",
+                "kernels/locus_merge.py", "kernels/candidate_topk.py",
+                "kernels/embedding_bag.py", "kernels/ops.py",
+                "core/engine/substrate.py",
                 "core/engine/locus.py", "core/engine/beam.py",
                 "core/engine/packed.py", "core/engine/cached.py",
                 "api/index.py"):
