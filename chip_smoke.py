@@ -24,10 +24,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dense and the packed K=16 cache, ``k >= F*K`` included; ``topk_select``
    at the rule-free cached route's shape (C=K=16, k=10) and on [64, 512]
    rows with seeded ties; ``candidate_topk`` at 1 query x 1,000,000
-   candidates x D=64, k=100 (scores within 1e-5 relative, ids equal but
-   for near-ties) and ``embedding_bag`` on a 1,000,000 x 64 table, 512
-   bags of 0-32 entries, sum and mean, float32 (1e-5) and bfloat16
-   (3e-2);
+   candidates x D=64, k=100, in float32 and bfloat16, at three ragged
+   shapes, at D=33 on a misaligned slice (the scalar-load path), on all
+   scores equal (ids exactly 0..k-1), on scores ascending by id (every row
+   enters the buffer), at the largest k its launch plan takes and on
+   20,000 rows of D=1000 (the query partly read from memory) (scores
+   within 1e-5 relative, ids equal but for near-ties); ``embedding_bag`` on
+   a 1,000,000 x 64 table and a misaligned 1,000,000 x 33 one, 512 bags of
+   0-32 entries, through the dense and the ragged entry, sum and mean,
+   with and without 5 % -1 entries, uncut and cut at ``max_bag=16``,
+   float32 (1e-5) and bfloat16 (3e-2), on 64 bags of 0-100 entries (a
+   bag read 32 entries at a time), and the ragged entry on int64 indices
+   and offsets without weights;
 4. drive the main path through ``CompletionService.complete`` with the
    launcher's batch workload (512 queries of ``make_workload(seed=1)``,
    batch 64, k=10, one warm-up batch) on: USPS ET 1M dense (beam), USPS
@@ -38,16 +46,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    reconfigured to ``edit_budget=1`` without a rebuild, and the dense one
    with the beam at ``edit_budget=2``; then the off-path ``ops`` entry
    points (``candidate_topk`` at the retrieval shape, ``embedding_bag``
-   at 512 bags).  Every kernel of a path must launch in it, no plain
-   version may run, the answers must equal the ``"torch"`` substrate's on
+   on the ragged batch of 512 bags).  Every kernel of a path must launch
+   in it, no plain version may run, the answers must equal the
+   ``"torch"`` substrate's on
    the same index (edit paths: on their first 128, at E = 2 64, queries),
    and each packed index's answers must equal the dense index's of the
    same cache depth and edit budget (node ids are shared, so the layouts
    agree bit for bit);
 5. time each kernel against its plain version, its bound and (where one
    exists) a PyTorch library call at the main path's shapes (the locus DP
-   also at E = 1 and 2); print one JSON line of kernels, the card, and,
-   last, the device line.
+   also at E = 1 and 2; ``candidate_topk`` also in bfloat16,
+   ``embedding_bag`` also through its dense entry), by CUDA events over
+   20 back-to-back calls; for ``topk_select``, ``locus_topk_merge``,
+   ``candidate_topk`` and ``embedding_bag`` and their library calls also
+   with the host out (the 20 calls captured once in a CUDA graph, the
+   replay timed) and the host microseconds per call (1,000 calls, no
+   synchronise); print one JSON line of kernels, the card, and, last, the
+   device line.
 
 ``--small`` runs every phase on small corpora (a quick compile-and-check).
 Without a CUDA device the script exits non-zero and prints no result.
@@ -163,6 +178,55 @@ def check_topk(what: str, got, want, tol: float = 1e-5) -> None:
                              f"near-ties at {bad.nonzero()[:5].tolist()}")
     log(f"  candidate_topk {what} ids: equal ({int((gi != wi).sum())} "
         "swapped within near-ties)")
+
+
+def graph_ms(fn, reps: int):
+    """Device time of ``fn()`` with the host out: ``reps`` calls captured
+    once in a CUDA graph, one replay timed by CUDA events.  (ms, None), or
+    (None, the reason) where the capture fails."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):    # warm up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except Exception as err:   # reported in place of a number
+        torch.cuda.synchronize()
+        return None, f"{type(err).__name__}: {str(err)[:200]}"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, None
+
+
+def host_us(fn, calls: int) -> float:
+    """Host microseconds per call of ``fn()`` over ``calls`` calls with no
+    synchronise between them (once the launch queue fills, the host waits
+    on the card, so a call longer on the card than on the host reads as
+    its device time)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -444,16 +508,56 @@ def main() -> int:
     n_cand = 20_000 if args.small else CAND_N
     cand_q = torch.randn(CAND_D, generator=gen, device=dev)
     cands = torch.randn(n_cand, CAND_D, generator=gen, device=dev)
-    check_topk(f"C={n_cand} D={CAND_D} k={CAND_K}",
-               candidate_topk.candidate_topk(cand_q, cands, CAND_K),
-               candidate_topk.candidate_topk_plain(cand_q, cands, CAND_K))
+    cand_q_bf16, cands_bf16 = cand_q.bfloat16(), cands.bfloat16()
+
+    def topk_parity(what, query, cand, k, block_c=1024):
+        got = candidate_topk.candidate_topk(query, cand, k, block_c)
+        check_topk(what, got, candidate_topk.candidate_topk_plain(query, cand,
+                                                                  k))
+        return got
+
+    for q_t, c_t in ((cand_q, cands), (cand_q_bf16, cands_bf16)):
+        topk_parity(f"C={n_cand} D={CAND_D} k={CAND_K} {str(c_t.dtype)[6:]}",
+                    q_t, c_t, CAND_K)
     for c_n, k, bc in ((300, 200, 256), (5, 9, 1024), (4097, 1, 64)):
-        check_topk(f"C={c_n} k={k} block_c={bc}",
-                   candidate_topk.candidate_topk(cand_q, cands[:c_n], k, bc),
-                   candidate_topk.candidate_topk_plain(cand_q, cands[:c_n],
-                                                       k))
+        topk_parity(f"C={c_n} k={k} block_c={bc}", cand_q, cands[:c_n], k, bc)
+    # the scalar path: D=33 rows from an odd row offset (not 16-byte aligned)
+    c33 = torch.randn(n_cand + 1, 33, generator=gen, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        rows33 = c33.to(dt)[1:]
+        if rows33.data_ptr() % 16 == 0:
+            raise AssertionError("the D=33 slice should be misaligned")
+        topk_parity(f"C={n_cand} D=33 {str(dt)[6:]} misaligned (scalar "
+                    "loads)", cand_q[:33].to(dt), rows33, CAND_K)
+    del c33, rows33
+    # wide rows: past four query vectors a lane reads the rest from memory
+    wide = torch.randn(20_000, 1000, generator=gen, device=dev)
+    topk_parity("C=20000 D=1000 (query partly from memory)",
+                torch.randn(1000, generator=gen, device=dev), wide, CAND_K)
+    del wide
+    same = cands[:1].expand(n_cand, CAND_D).contiguous()
+    got = topk_parity(f"C={n_cand} all scores equal", cand_q, same, CAND_K)
+    if not torch.equal(got[1], torch.arange(CAND_K, dtype=torch.int32,
+                                            device=dev)):
+        raise AssertionError(f"candidate_topk all scores equal: ids "
+                             f"{got[1][:8].tolist()}..., expected 0..k-1")
+    asc = torch.zeros(n_cand, CAND_D, device=dev)
+    asc[:, 0] = torch.arange(n_cand, device=dev, dtype=torch.float32)
+    unit = torch.zeros(CAND_D, device=dev)
+    unit[0] = 1.0
+    got = topk_parity(f"C={n_cand} scores ascending by id (every row beats "
+                      "the threshold)", unit, asc, CAND_K)
+    if not torch.equal(got[1], torch.arange(n_cand - 1, n_cand - 1 - CAND_K,
+                                            -1, dtype=torch.int32,
+                                            device=dev)):
+        raise AssertionError("candidate_topk ascending scores: wrong ids")
+    del same, asc
+    k_top = candidate_topk.max_k(CAND_D)
+    topk_parity(f"C={n_cand} largest k={k_top}", cand_q, cands, k_top)
+
     n_rows = 20_000 if args.small else BAG_ROWS
     bag_table = torch.randn(n_rows, BAG_D, generator=gen, device=dev)
+    table33 = torch.randn(n_rows + 1, 33, generator=gen, device=dev)
     bag_lens = torch.randint(0, BAG_MAX + 1, (BAGS,), generator=gen,
                              device=dev)
     bag_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
@@ -465,17 +569,53 @@ def main() -> int:
     holes = torch.where(torch.rand(n_idx, generator=gen, device=dev) < 0.05,
                         -1, bag_idx).to(torch.int32)
     for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+        # D=64, and D=33 from an odd row offset (the scalar path)
+        for tab in (bag_table.to(dt), table33.to(dt)[1:]):
+            for indices, label in ((bag_idx, ""), (holes, ", 5% -1")):
+                for cut in (None, BAG_MAX // 2):
+                    d_idx, d_w = ops.densify_bags(indices, bag_off, bag_w, cut,
+                                                  dt, dev)
+                    for mode in ("sum", "mean"):
+                        what = (f"{n_rows}x{tab.shape[1]} {str(dt)[6:]} {BAGS}"
+                                f" bags {mode}{label} max_bag={cut}")
+                        want = embedding_bag.embedding_bag_dense_plain(
+                            tab, d_idx, d_w, mode)
+                        check_close("embedding_bag", "dense " + what,
+                                    embedding_bag.embedding_bag_dense(
+                                        tab, d_idx, d_w, mode), want, tol)
+                        check_close("embedding_bag", "ragged " + what,
+                                    embedding_bag.embedding_bag_ragged(
+                                        tab, indices, bag_off, bag_w, mode,
+                                        cut), want, tol)
+    # long bags: a warp reads its bag 32 entries at a time
+    long_lens = torch.randint(0, 101, (64,), generator=gen, device=dev)
+    long_off = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                          long_lens.cumsum(0)]).to(torch.int32)
+    long_idx = torch.randint(-1, n_rows, (int(long_off[-1]),), generator=gen,
+                             device=dev, dtype=torch.int32)
+    long_w = torch.randn(long_idx.shape[0], generator=gen, device=dev)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
         tab = bag_table.to(dt)
-        for indices, label in ((bag_idx, ""), (holes, ", 5% -1")):
-            d_idx, d_w = ops.densify_bags(indices, bag_off, bag_w, None, dt,
-                                          dev)
-            for mode in ("sum", "mean"):
-                check_close("embedding_bag", f"{n_rows}x{BAG_D} "
-                            f"{str(dt)[6:]} {BAGS} bags {mode}{label}",
-                            embedding_bag.embedding_bag_dense(tab, d_idx,
-                                                              d_w, mode),
-                            embedding_bag.embedding_bag_dense_plain(
-                                tab, d_idx, d_w, mode), tol)
+        d_idx, d_w = ops.densify_bags(long_idx, long_off, long_w, None, dt,
+                                      dev)
+        for mode in ("sum", "mean"):
+            want = embedding_bag.embedding_bag_dense_plain(tab, d_idx, d_w,
+                                                           mode)
+            what = f"64 bags of 0-100 entries {str(dt)[6:]} {mode}"
+            check_close("embedding_bag", "dense " + what,
+                        embedding_bag.embedding_bag_dense(tab, d_idx, d_w,
+                                                          mode), want, tol)
+            check_close("embedding_bag", "ragged " + what,
+                        embedding_bag.embedding_bag_ragged(
+                            tab, long_idx, long_off, long_w, mode), want, tol)
+    d_idx, d_w = ops.densify_bags(holes, bag_off, None, None, torch.float32,
+                                  dev)
+    check_close("embedding_bag", "ragged int64 indices and offsets, no "
+                "weights", embedding_bag.embedding_bag_ragged(
+                    bag_table, holes.long(), bag_off.long()),
+                embedding_bag.embedding_bag_dense_plain(bag_table, d_idx, d_w),
+                1e-5)
+    del table33
 
     # -- phase 4: the main path ---------------------------------------------------
     counters = {
@@ -711,7 +851,7 @@ def main() -> int:
 
     bag_dense = ops.densify_bags(bag_idx, bag_off, bag_w, None,
                                  torch.float32, dev)
-    n_valid = int((bag_dense[0] >= 0).sum())
+    n_valid = int((bag_idx >= 0).sum())
 
     def bag_library():
         return torch.nn.functional.embedding_bag(
@@ -802,21 +942,24 @@ def main() -> int:
          2 * n_cand * CAND_D),
         ("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
          "src/repro/kernels/embedding_bag.py:41",
-         lambda: embedding_bag.embedding_bag_dense(bag_table, *bag_dense),
-         lambda: embedding_bag.embedding_bag_dense_plain(bag_table,
-                                                         *bag_dense),
+         # the ops path's entry: the ragged batch as it is
+         lambda: embedding_bag.embedding_bag_ragged(bag_table, bag_idx,
+                                                    bag_off, bag_w),
+         lambda: embedding_bag.embedding_bag_dense_plain(
+             bag_table, *ops.densify_bags(bag_idx, bag_off, bag_w, None,
+                                          torch.float32, dev)),
          bag_library,
-         # one float32 table row per valid index, the dense indices and
-         # weights, the output; a multiply-add per gathered value
-         n_valid * BAG_D * 4 + bag_dense[0].numel() * 8 + BAGS * BAG_D * 4,
+         # one float32 table row per valid index, the indices, weights and
+         # offsets, the output; a multiply-add per gathered value
+         n_valid * BAG_D * 4 + n_idx * 8 + (BAGS + 1) * 4 + BAGS * BAG_D * 4,
          2 * n_valid * BAG_D),
     ]
     saved = counts()
-    for name, source, replaces, kern, plain, library, nbytes, ops in specs:
+    for name, source, replaces, kern, plain, library, nbytes, n_ops in specs:
         ms = cuda_ms(kern, 20)
         plain_ms = cuda_ms(plain, 3)
         library_ms = cuda_ms(library, 20) if library else None
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = bound(nbytes, n_ops)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launched[name],
                      "max_abs_err": MAX_ABS_ERR[name], "ms": ms,
@@ -824,10 +967,62 @@ def main() -> int:
                      "bound_by": bound_by, "library_ms": library_ms})
         log(f"time {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
             f"library {library_ms if library_ms is None else f'{library_ms:.4f} ms'}, "
-            f"bound {bound_ms:.6f} ms ({bound_by}, {nbytes} B, {ops} ops)")
+            f"bound {bound_ms:.6f} ms ({bound_by}, {nbytes} B, {n_ops} ops)")
     log("time locus_topk_merge on the dense cache, same loci: "
         f"{cuda_ms(lambda: locus_merge.locus_topk_merge(tc, loci_et, K), 20):.4f}"
         " ms")
+    # the other entries and types of rows 12-13
+    bf16_bound, _ = bound(n_cand * CAND_D * 2 + CAND_D * 2 + CAND_K * 8,
+                          2 * n_cand * CAND_D)
+    bf16_ms = cuda_ms(lambda: candidate_topk.candidate_topk(
+        cand_q_bf16, cands_bf16, CAND_K), 20)
+    log(f"time candidate_topk bfloat16: {bf16_ms:.4f} ms kernel, bound "
+        f"{bf16_bound:.6f} ms (bytes, {n_cand * CAND_D * 2} B)")
+    dense_bound, _ = bound(n_valid * BAG_D * 4 + bag_dense[0].numel() * 8
+                           + BAGS * BAG_D * 4, 2 * n_valid * BAG_D)
+    dense_ms = cuda_ms(lambda: embedding_bag.embedding_bag_dense(
+        bag_table, *bag_dense), 20)
+    log(f"time embedding_bag dense entry: {dense_ms:.4f} ms kernel, bound "
+        f"{dense_bound:.6f} ms (bytes)")
+    # candidate_topk's two kernels apart, by the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    for q_t, c_t in ((cand_q, cands), (cand_q_bf16, cands_bf16)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                candidate_topk.candidate_topk(q_t, c_t, CAND_K)
+            torch.cuda.synchronize()
+        split = {ev.key.split("::")[-1].split("<")[0].split("(")[0]:
+                 getattr(ev, "device_time", None) or ev.cuda_time
+                 for ev in prof.key_averages() if "candidate_" in ev.key}
+        log(f"profile candidate_topk {str(c_t.dtype)[6:]} (us a call, 10 "
+            "calls): " + (", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                          if split else "not measured (no device events)"))
+    # device time with the host out, and host time per call, for the rows
+    # whose back-to-back time may be the host's
+    by_name = {sp[0]: sp for sp in specs}
+    host_out = [(n, by_name[n][3], by_name[n][5]) for n in (
+        "topk_select", "locus_topk_merge", "candidate_topk",
+        "embedding_bag")]
+    host_out.append(("embedding_bag dense entry",
+                     lambda: embedding_bag.embedding_bag_dense(bag_table,
+                                                               *bag_dense),
+                     None))
+    for name, kern, library in host_out:
+        for who, fn in (("kernel", kern), ("library", library)):
+            if fn is None:
+                continue
+            g_ms, why = graph_ms(fn, 20)
+            h_us = host_us(fn, 1000)
+            log(f"time {name} {who}: {cuda_ms(fn, 20):.4f} ms back to back, "
+                + (f"{g_ms:.4f} ms in a CUDA graph" if why is None
+                   else f"not measured in a CUDA graph ({why})")
+                + f", host {h_us:.2f} us a call")
+            row = next((r for r in rows if r["name"] == name), None)
+            if row is not None:
+                pre = "" if who == "kernel" else "library_"
+                row[pre + "graph_ms"] = g_ms
+                row[pre + "host_us"] = h_us
     for e in (1, 2):
         for name, tt, cfg in (("locus_dp", t_et, cfg_et),
                               ("locus_dp_packed", t_etp, cfg_etp)):

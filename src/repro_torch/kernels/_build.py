@@ -14,6 +14,7 @@ edited source is rebuilt and a built one is reused.  There is no fallback: a mis
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -145,12 +146,31 @@ def is_u16(name: str, arg: str, t: torch.Tensor) -> int:
     return int(t.dtype == torch.uint16)
 
 
+@functools.lru_cache(maxsize=None)
+def lanes_per_row(dim: int, elem_bytes: int, vec: bool) -> int:
+    """Lanes of a warp that read one row of ``dim`` values of
+    ``elem_bytes`` each: its 16-byte vectors when ``vec`` (else its
+    values), rounded down to a power of two, at most 32."""
+    per_row = dim * elem_bytes // 16 if vec else dim
+    lanes = 1
+    while lanes * 2 <= min(per_row, 32):
+        lanes *= 2
+    return lanes
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the capturing
+    stream inside ``torch.cuda.graph``).  ``torch.cuda.current_stream``
+    builds a Stream object per call, several microseconds of host time on
+    every launch; this accessor, the one PyTorch's generated code calls,
+    does not."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 #: the per-block dynamic shared memory a kernel may ask for on Hopper

@@ -1,35 +1,44 @@
-"""CUDA kernel: EmbeddingBag over a dense [B, MB] index matrix.
+"""CUDA kernel: EmbeddingBag over a dense [B, MB] index matrix or a ragged
+(indices, offsets) batch.
 
 Replaces ``repro/kernels/embedding_bag.py:41`` ``embedding_bag_dense``:
 out[b] = Σ_m w[b, m] · table[idx[b, m]] over the entries with idx >= 0
 (an index past the table reads its last row, as the TPU kernel's clip
 does), divided by max(#valid, 1) in ``"mean"`` mode.  The table is
-float32 or bfloat16; the output has its type and the sum is taken in
-float32.  One block per bag (``csrc/embedding_bag.cu``), each thread a
-column stripe, so every gathered row is read once and coalesced.
+float32 or bfloat16; the output has its type, weights are rounded to it
+first, and the sum is taken in float32.  One warp per bag
+(``csrc/embedding_bag.cu``) gathers the bag's rows with 16-byte loads.
+The same kernel reads a ragged batch straight from its flat arrays
+(:func:`embedding_bag_ragged`, the function ``repro``'s
+``ops.embedding_bag`` computes): no dense copy and no host sync.
 
 Bound on the H100: the bytes gathered — one table row per valid index —
 plus the indices, weights and output.
 
-:func:`embedding_bag_dense` launches the kernel for CUDA tensors and
-answers CPU tensors with :func:`embedding_bag_dense_plain`.
+Each wrapper launches the kernel for CUDA tensors and answers CPU tensors
+with its plain version: :func:`embedding_bag_dense_plain`, and for the
+ragged entry :func:`densify_bags` followed by it.
 """
 
 from __future__ import annotations
 
 import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches (each :func:`embedding_bag_dense` call on CUDA tensors
-#: adds one) and plain-version calls
+#: kernel launches (each call on CUDA tensors adds one, either entry) and
+#: plain-version calls
 launches = 0
 plain_calls = 0
 
 MODES = ("sum", "mean")
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+INDEX_DTYPES = (torch.int32, torch.int64)
+#: ``max_bag=None``: no bag is cut
+NO_CUT = 2**31 - 1
 _V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_launch = None
 
 
 def embedding_bag_dense_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -48,18 +57,129 @@ def embedding_bag_dense_plain(table: torch.Tensor, idx: torch.Tensor,
     return out.to(table.dtype)
 
 
-def launch_threads(dim: int) -> int:
-    """Threads of one block: a warp multiple, at most 256, no more than
-    the row's columns need."""
-    return min(256, max(32, (dim + 31) // 32 * 32))
+def densify_bags(indices, offsets, weights, max_bag: int | None,
+                 dtype: torch.dtype, device):
+    """A ragged (indices int32[I], offsets int32[B+1], weights [I] or None)
+    batch as (idx int32[B, MB] with -1 padding, weights [B, MB] of
+    ``dtype`` with 0 padding), MB = ``max_bag`` or the longest bag (at
+    least 1); entries past MB in a bag are dropped (``repro``'s
+    ``ops.embedding_bag``)."""
+    indices = torch.as_tensor(indices, device=device).to(torch.int32)
+    offsets = torch.as_tensor(offsets, device=device).long()
+    B = int(offsets.shape[0]) - 1
+    n = int(indices.shape[0])
+    lens = offsets[1:] - offsets[:-1]
+    mb = int(max_bag if max_bag is not None
+             else max(int(lens.max()) if B > 0 else 1, 1))
+    w = (torch.ones(n, dtype=dtype, device=device) if weights is None
+         else torch.as_tensor(weights, device=device).to(dtype))
+    at = torch.arange(n, device=device)
+    bag = torch.searchsorted(offsets[1:].contiguous(), at, right=True)
+    bag_c = bag.clamp(max=max(B - 1, 0))
+    pos = at - offsets[bag_c] if B > 0 else at
+    ok = (bag < B) & (pos >= 0) & (pos < mb)
+    dense = torch.full((B, mb), -1, dtype=torch.int32, device=device)
+    wdense = torch.zeros((B, mb), dtype=dtype, device=device)
+    dense[bag_c[ok], pos[ok]] = indices[ok]
+    wdense[bag_c[ok], pos[ok]] = w[ok]
+    return dense, wdense
 
 
-def _lib():
-    fn = _build.library("embedding_bag").embedding_bag_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_V, _LL, _I, _V, _V, _I, _I, _I, _I, _I, _V, _V]
+def _on(x, device, dtypes, to: torch.dtype) -> torch.Tensor:
+    """``x`` as a contiguous tensor on ``device`` of one of ``dtypes``,
+    converted (to ``to``) only where it is not one already."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+    if t.device != device:
+        t = t.to(device)
+    if t.dtype not in dtypes:
+        t = t.to(to)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def ragged_args(table: torch.Tensor, indices, offsets, weights=None,
+                max_bag: int | None = None):
+    """The ragged entry's launch arguments on the table's device, as
+    (indices, offsets, weights, max_bag): the flat arrays as they are
+    (int32 or int64 indices and offsets; float32 or bfloat16 weights,
+    rounded to the table's type in the kernel, or None for ones),
+    converted only where the kernel does not read them as they are; bag b
+    takes entries ``offsets[b] .. min(offsets[b+1], offsets[b] +
+    max_bag)``, ``max_bag`` :data:`NO_CUT` when None."""
+    dev = table.device
+    indices = _on(indices, dev, INDEX_DTYPES, torch.int64)
+    offsets = _on(offsets, dev, INDEX_DTYPES, torch.int64)
+    if weights is not None:
+        weights = _on(weights, dev, FLOAT_DTYPES, table.dtype)
+    if indices.dim() != 1 or offsets.dim() != 1 or offsets.numel() < 1 or (
+            weights is not None and (weights.dim() != 1
+                                     or weights.numel() != indices.numel())):
+        raise ValueError(
+            f"embedding_bag: indices {tuple(indices.shape)}, offsets "
+            f"{tuple(offsets.shape)} and weights "
+            f"{None if weights is None else tuple(weights.shape)} must be "
+            "[I], [B+1] (B >= 0) and [I] or None")
+    if max_bag is None:
+        max_bag = NO_CUT
+    elif not 0 <= max_bag <= NO_CUT:
+        raise ValueError(f"embedding_bag: max_bag must be in [0, {NO_CUT}], "
+                         f"got {max_bag}")
+    return indices, offsets, weights, int(max_bag)
+
+
+def _fn():
+    global _launch
+    if _launch is None:
+        fn = _build.library("embedding_bag").embedding_bag_launch
+        fn.argtypes = ([_V, _LL, _I, _I, _I, _I, _V, _I, _LL, _V, _I, _V,
+                        _I, _I, _I, _I, _V, _V])
         fn.restype = _I
-    return fn
+        _launch = fn
+    return _launch
+
+
+def _check_table(table: torch.Tensor, mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"embedding_bag: mode must be one of {MODES}, got "
+                         f"{mode!r}")
+    if table.dim() != 2 or 0 in table.shape:
+        raise ValueError(f"embedding_bag: table {tuple(table.shape)} must be "
+                         "[V >= 1, D >= 1]")
+
+
+def _check(arg: str, t: torch.Tensor, device, dtypes) -> None:
+    if t.device != device:
+        raise ValueError(f"embedding_bag: {arg} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"embedding_bag: {arg} has dtype {t.dtype}, "
+                        f"expected one of {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"embedding_bag: {arg} is not contiguous")
+
+
+def _run(table, dev, idx, weights, offsets, n_bags, max_bag, mode):
+    """One launch on ``dev``, every tensor checked by the caller
+    (``offsets`` None: the dense entry).  Host time is most of a call at
+    serving sizes, so the flags are plain comparisons of dtype singletons."""
+    global launches
+    V, D = table.shape
+    esize = table.element_size()
+    ptr = table.data_ptr()
+    vec = (D * esize) % 16 == 0 and ptr % 16 == 0
+    out = torch.empty((n_bags, D), dtype=table.dtype, device=dev)
+    err = _fn()(ptr, V, D, table.dtype is torch.bfloat16, vec,
+                _build.lanes_per_row(D, esize, vec), idx.data_ptr(),
+                idx.dtype is torch.int64, idx.numel(),
+                None if weights is None else weights.data_ptr(),
+                0 if weights is None else
+                1 if weights.dtype is torch.float32 else 2,
+                None if offsets is None else offsets.data_ptr(),
+                offsets is not None and offsets.dtype is torch.int64,
+                n_bags, max_bag, mode == "mean", out.data_ptr(),
+                _build.stream(dev))
+    _build.check_launch("embedding_bag", err)
+    launches += 1
+    return out
 
 
 def embedding_bag_dense(table: torch.Tensor, idx: torch.Tensor,
@@ -67,35 +187,35 @@ def embedding_bag_dense(table: torch.Tensor, idx: torch.Tensor,
     """table [V, D] float32|bfloat16, idx int32[B, MB] (-1 skipped),
     weights [B, MB] -> [B, D] in the table's type: the kernel on CUDA
     tensors, the plain version on CPU tensors."""
-    global launches
-    if mode not in MODES:
-        raise ValueError(f"embedding_bag: mode must be one of {MODES}, "
-                         f"got {mode!r}")
-    if table.device.type == "cpu":
-        return embedding_bag_dense_plain(table, idx, weights, mode)
+    _check_table(table, mode)
     dev = table.device
-    name = "embedding_bag"
-    weights = weights.to(table.dtype)
-    _build.check_tensors(name, dev, (torch.float32, torch.bfloat16),
-                         table=table, weights=weights)
-    _build.check_tensors(name, dev, (torch.int32,), idx=idx)
-    if (table.dim() != 2 or idx.dim() != 2 or weights.shape != idx.shape
-            or table.shape[0] < 1):
-        raise ValueError(f"{name}: table {tuple(table.shape)}, idx "
-                         f"{tuple(idx.shape)} and weights "
-                         f"{tuple(weights.shape)} must be [V >= 1, D], "
-                         "[B, MB] and [B, MB]")
+    if dev.type == "cpu":
+        return embedding_bag_dense_plain(table, idx, weights, mode)
+    _check("table", table, dev, FLOAT_DTYPES)
+    if idx.dim() != 2 or weights.shape != idx.shape:
+        raise ValueError(f"embedding_bag: idx {tuple(idx.shape)} and weights "
+                         f"{tuple(weights.shape)} must be one [B, MB] shape")
+    if weights.dtype not in FLOAT_DTYPES:
+        weights = weights.to(table.dtype)
+    _check("idx", idx, dev, (torch.int32,))
+    _check("weights", weights, dev, FLOAT_DTYPES)
     B, MB = idx.shape
-    V, D = table.shape
-    if 8 * MB > _build.MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: a bag of {MB} entries needs {8 * MB} B "
-                         f"of shared memory; a block has "
-                         f"{_build.MAX_SHARED_BYTES}")
-    out = torch.empty((B, D), dtype=table.dtype, device=dev)
-    p = _build.ptr
-    err = _lib()(p(table), V, D, p(idx), p(weights), B, MB,
-                 int(mode == "mean"), int(table.dtype == torch.bfloat16),
-                 launch_threads(D), p(out), _build.stream(dev))
-    _build.check_launch(name, err)
-    launches += 1
-    return out
+    return _run(table, dev, idx, weights, None, B, MB, mode)
+
+
+def embedding_bag_ragged(table: torch.Tensor, indices, offsets, weights=None,
+                         mode: str = "sum", max_bag: int | None = None):
+    """EmbeddingBag over a ragged batch: indices [I] (-1 skipped), offsets
+    [B+1], weights [I] or None (each 1); bag b takes at most ``max_bag``
+    entries (all when None).  The kernel on a CUDA table, reading the flat
+    arrays; on a CPU table the plain version, :func:`densify_bags` then
+    :func:`embedding_bag_dense_plain`."""
+    _check_table(table, mode)
+    dev = table.device
+    if dev.type == "cpu":
+        idx, w = densify_bags(indices, offsets, weights, max_bag,
+                              table.dtype, dev)
+        return embedding_bag_dense_plain(table, idx, w, mode)
+    _check("table", table, dev, FLOAT_DTYPES)
+    idx, off, w, cut = ragged_args(table, indices, offsets, weights, max_bag)
+    return _run(table, dev, idx, w, off, off.numel() - 1, cut, mode)
