@@ -17,11 +17,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    element for element, at the main path's shapes (B=64, L bucket 32,
    k=10) with the default widths, the first retry round's and the widest:
    the dense and the packed locus DP and beam on DBLP TT, DBLP HT (24,810
-   strings) and USPS ET 1M; the locus DP's edit transitions (E = 1 and 2,
-   both accessors, DBLP TT, DBLP HT, USPS plain 100k and USPS ET 1M, at
-   F = 32, 64, 128 and 256, and with its rows forced into the
-   device-memory workspace); ``trie_walk``; ``locus_topk_merge`` on the
-   dense and the packed K=16 cache, ``k >= F*K`` included; ``topk_select``
+   strings) and USPS ET 1M; the locus DP at E = 0, 1 and 2 (both
+   accessors, DBLP TT, DBLP HT, USPS plain 100k and USPS ET 1M, at F =
+   32, 64, 128 and 256, and with its rows forced into the device-memory
+   workspace) and the beam on those loci at each retry round's widths (W
+   = 48 to 3,072; 16 queries past W = 192) on USPS ET and DBLP HT; both on
+   a batch of queries of 1 and of 32 characters; the beam at every
+   round's widths on two tie-heavy USPS ET 100k corpora (every score
+   equal; scores drawn from three values); ``trie_walk``;
+   ``locus_topk_merge`` on the dense and the packed K=16 cache,
+   ``k >= F*K`` included; ``topk_select``
    at the rule-free cached route's shape (C=K=16, k=10) and on [64, 512]
    rows with seeded ties; ``candidate_topk`` at 1 query x 1,000,000
    candidates x D=64, k=100, in float32 and bfloat16, at three ragged
@@ -55,7 +60,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    agree bit for bit);
 5. time each kernel against its plain version, its bound and (where one
    exists) a PyTorch library call at the main path's shapes (the locus DP
-   also at E = 1 and 2; ``candidate_topk`` also in bfloat16,
+   also at E = 1 and 2, and the locus DP and the beam at every width the
+   main path launched them, with their launches counted per width in
+   phase 4; ``candidate_topk`` also in bfloat16,
    ``embedding_bag`` also through its dense entry), by CUDA events over
    20 back-to-back calls; for ``topk_select``, ``locus_topk_merge``,
    ``candidate_topk`` and ``embedding_bag`` and their library calls also
@@ -96,7 +103,15 @@ CAND_N, CAND_D, CAND_K = 1_000_000, 64, 100
 BAG_ROWS, BAG_D, BAGS, BAG_MAX = 1_000_000, 64, 512, 32
 RETRY = dict(frontier=64, gens=192, max_steps=2048)     # first retry round
 WIDEST = dict(frontier=256, gens=3072, max_steps=32768)  # third retry round
+TIE_SCORES = ("equal", "three")   # every score 7; scores from {5, 9, 13}
 PAPER_B_PER_STRING = (160, 200)   # the paper's space claim
+
+
+def round_widths(cfg, r: int) -> dict:
+    """The engine widths of retry round r (0: the first pass), as
+    ``CompletionIndex.complete_batch_padded`` widens them."""
+    return dict(frontier=cfg.frontier * 2 ** r, gens=cfg.gens * 4 ** r,
+                max_steps=cfg.max_steps * 4 ** r)
 
 
 def log(*a):
@@ -247,6 +262,7 @@ def main() -> int:
                     help="small corpora: a quick compile-and-check run")
     args = ap.parse_args()
 
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -359,6 +375,17 @@ def main() -> int:
     usps_plain_p = derive("USPS plain packed", usps_plain, usps_plain.trie,
                           "packed")
     del et_cached
+    # the tie-heavy corpora: USPS ET at the plain cut's size, every score
+    # equal or drawn from three values (numpy, seed 5)
+    tie_indexes = {}
+    for tie in TIE_SCORES:
+        n = len(usps_small.strings)
+        scores = (np.full(n, 7) if tie == "equal" else
+                  np.random.default_rng(5).choice([5, 9, 13], n))
+        ds = dataclasses.replace(usps_small, scores=scores)
+        idx = build(f"USPS scores {tie}", ds, "et")
+        tie_indexes[tie] = (idx, derive(f"USPS ET scores {tie} packed", idx,
+                                        idx.trie, "packed"))
 
     def batch(ds, seed, n=B):
         qs, ql = pad_queries(make_workload(ds, n, seed=seed), L_BUCKET)
@@ -426,7 +453,7 @@ def main() -> int:
                           ("USPS ET packed", usps_et_p, usps)):
         kern = "locus_dp_packed" if "packed" in name else "locus_dp"
         q, ql = batch(ds, seed=1)
-        for e in (1, 2):
+        for e in (0, 1, 2):
             for f in (idx.cfg.frontier,) + EDIT_FRONTIERS:
                 cfg = replace(idx.cfg, edit_budget=e, frontier=f)
                 ls = locus_dp.launch_shape(cfg, L_BUCKET)
@@ -443,7 +470,26 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(got, other)):
             raise AssertionError(f"{name} E={e} F={f}: packed and dense "
                                  "loci differ")
-    log("  dense and packed loci and overflow equal at E = 1 and 2")
+    log("  dense and packed loci and overflow equal at E = 0, 1 and 2")
+    # the beam on those loci at each retry round's widths (F = 32-256 with
+    # W = 48-3,072), E = 0-2, both accessors, on USPS ET and DBLP HT
+    for name, idx in (("USPS ET", usps_et), ("DBLP HT", dblp_ht),
+                      ("USPS ET packed", usps_et_p),
+                      ("DBLP HT packed", dblp_ht_p)):
+        kern = "beam_topk_packed" if "packed" in name else "beam_topk"
+        for e in (0, 1, 2):
+            for r in range(4):
+                cfg = replace(idx.cfg, edit_budget=e,
+                              **round_widths(idx.cfg, r))
+                loci = edit_loci[name, e, cfg.frontier][0]
+                n_q = B if r < 2 else B // 4
+                got = beam_topk.beam_topk_batch(idx.tensors, cfg,
+                                                loci[:n_q], K)
+                want = beam_topk.beam_topk_plain(idx.tensors, cfg,
+                                                 loci[:n_q], K)
+                check_equal(kern, f"{name} E={e} W={cfg.gens} "
+                            f"max_steps={cfg.max_steps} on {n_q} queries "
+                            f"exact={int(got[2].sum())}/{n_q}", got, want)
     # the device-memory workspace, forced: candidate rows, then the
     # frontier too
     saved_max = _build.MAX_SHARED_BYTES
@@ -454,7 +500,7 @@ def main() -> int:
         cfg = replace(idx.cfg, edit_budget=e, frontier=64)
         if locus_dp.launch_shape(cfg, L_BUCKET).ws_stride:
             raise AssertionError(f"{name}: F=64 should fit shared memory")
-        small = 4 * (L_BUCKET + 2 * max(cfg.rule_matches, 1))
+        small = 4 * locus_dp.fixed_ints(cfg, L_BUCKET)
         for cap in (small + 4 * (L_BUCKET + 1) * 64, small):
             _build.MAX_SHARED_BYTES = cap
             forced = locus_dp.launch_shape(cfg, L_BUCKET)
@@ -465,6 +511,59 @@ def main() -> int:
                         f"{forced.cand_in_ws}, {forced.ws_stride} ints a "
                         "block)", got,
                         locus_dp.locus_dp_plain(idx.tensors, cfg, q, ql))
+
+    # queries of one character, of a full L_BUCKET characters, and mixed
+    # (a dictionary string typed on past its end, to fill the bucket)
+    work = make_workload(usps, B, seed=3)
+    edge = ([x[:1] for x in work[:16]]
+            + [" ".join([x] * 3)[:L_BUCKET] for x in usps.strings[:16]]
+            + work[16:B])
+    qs_e, ql_e = pad_queries(edge, L_BUCKET)
+    q_e, ql_e = (torch.from_numpy(qs_e).to(dev),
+                 torch.from_numpy(ql_e).to(dev))
+    if not {1, L_BUCKET} <= set(ql_e.tolist()):
+        raise AssertionError("the edge batch should hold lengths 1 and "
+                             f"{L_BUCKET}")
+    for name, idx in (("USPS ET", usps_et), ("USPS ET packed", usps_et_p),
+                      ("DBLP HT", dblp_ht)):
+        sfx = "_packed" if "packed" in name else ""
+        for e in (0, 1, 2):
+            cfg = replace(idx.cfg, edit_budget=e)
+            got = locus_dp.locus_dp_walk(idx.tensors, cfg, q_e, ql_e)
+            check_equal("locus_dp" + sfx, f"{name} E={e} lengths 1, "
+                        f"{L_BUCKET} and mixed", got,
+                        locus_dp.locus_dp_plain(idx.tensors, cfg, q_e, ql_e))
+            got_b = beam_topk.beam_topk_batch(idx.tensors, cfg, got[0], K)
+            check_equal("beam_topk" + sfx, f"{name} E={e} lengths 1, "
+                        f"{L_BUCKET} and mixed", got_b,
+                        beam_topk.beam_topk_plain(idx.tensors, cfg, got[0],
+                                                  K))
+    # tie-heavy corpora, where the pool order decides which generator is
+    # popped: the beam at every round's widths, both accessors
+    for tie in TIE_SCORES:
+        idx_d, idx_p = tie_indexes[tie]
+        q, ql = batch(usps_small, seed=4)
+        answers_tie = []
+        for idx in (idx_d, idx_p):
+            kern = ("beam_topk_packed" if idx is idx_p else "beam_topk")
+            for r in range(4):
+                cfg = replace(idx.cfg, **round_widths(idx.cfg, r))
+                loci = locus_dp.locus_dp_walk(idx.tensors, cfg, q, ql)[0]
+                n_q = B if r < 2 else B // 4
+                got = beam_topk.beam_topk_batch(idx.tensors, cfg,
+                                                loci[:n_q], K)
+                check_equal(kern, f"USPS ET {len(usps_small.strings)} "
+                            f"scores {tie} "
+                            f"{'packed' if idx is idx_p else 'dense'} "
+                            f"W={cfg.gens} on {n_q} queries", got,
+                            beam_topk.beam_topk_plain(idx.tensors, cfg,
+                                                      loci[:n_q], K))
+                answers_tie.append(got)
+        for a, b in zip(answers_tie[:4], answers_tie[4:]):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"scores {tie}: packed and dense beams "
+                                     "differ")
+    log("  tie-heavy corpora: packed and dense beams equal at every width")
 
     # the cached merge on both cache layouts, k < F*K, k == F*K, k > F*K
     loci_et = loci_sets["USPS ET", "default"][2]
@@ -638,10 +737,17 @@ def main() -> int:
     def reset_counts():
         for mod, attr in list(counters.values()) + list(plain_counters):
             setattr(mod, attr, 0)
+        locus_dp.width_launches.clear()
+        beam_topk.width_launches.clear()
 
     def counts():
         c = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
         c["plain"] = sum(getattr(mod, attr) for mod, attr in plain_counters)
+        # launches by width: (row name, edit budget, F or W) -> count
+        c["widths"] = {
+            (base + ("_packed" if layout == "packed" else ""), e, w): n
+            for base, mod in (("locus_dp", locus_dp), ("beam_topk", beam_topk))
+            for (layout, e, w), n in mod.width_launches.items()}
         return c
 
     answers = {}
@@ -683,7 +789,10 @@ def main() -> int:
             f"{PAPER_B_PER_STRING[0]}-{PAPER_B_PER_STRING[1]}), "
             f"max_memory_allocated {peak} B (all indexes resident: "
             f"{resident} B; the path's own peak {peak - resident} B), "
-            f"queries re-run by retry rounds 1-3 {retried}, launches {c}")
+            f"queries re-run by retry rounds 1-3 {retried}, launches "
+            f"{ {k: v for k, v in c.items() if k != 'widths'} }, by width "
+            + ", ".join(f"{k[0]} E={k[1]} {'F' if 'locus' in k[0] else 'W'}"
+                        f"={k[2]}: {v}" for k, v in sorted(c["widths"].items())))
         for k_name in must_launch:
             if c[k_name] <= 0:
                 raise AssertionError(f"{name}: {k_name} never launched")
@@ -715,10 +824,14 @@ def main() -> int:
     if usps_et.substrate != "cuda":
         raise AssertionError(f"auto resolved to {usps_et.substrate} on CUDA")
     launched = {}
+    width_launched = {}   # the launches of `launched` by width
 
     def record(c, *names):
         for k_name in names:
             launched[k_name] = launched.get(k_name, 0) + c[k_name]
+        for key, n in c.get("widths", {}).items():
+            if key[0] in names:
+                width_launched[key] = width_launched.get(key, 0) + n
 
     record(main_path("USPS ET", usps_et, usps, ("locus_dp", "beam_topk")),
            "locus_dp", "beam_topk")
@@ -1035,6 +1148,59 @@ def main() -> int:
                 f"{cfg_e.branch_width}, cand={ls.cand}, {ls.threads} "
                 f"threads, {ls.shared} B shared): {ms:.4f} ms kernel, "
                 f"{plain_ms:.4f} ms plain")
+    # locus_dp and the beam at every width the main path launched them,
+    # on the first batch of the workload at that width
+    for name in ("locus_dp", "beam_topk", "locus_dp_packed",
+                 "beam_topk_packed"):
+        n_width = sum(n for key, n in width_launched.items()
+                      if key[0] == name)
+        if n_width != launched[name]:
+            raise AssertionError(f"{name}: {n_width} launches by width, "
+                                 f"{launched[name]} in all")
+    by_width = {}
+    for (name, e, w), n in sorted(width_launched.items()):
+        tt, cfg = (t_etp, cfg_etp) if "packed" in name else (t_et, cfg_et)
+        r = next(r for r in range(4)
+                 if round_widths(cfg, r)["gens" if "beam" in name
+                                         else "frontier"] == w)
+        cfg_w = replace(cfg, edit_budget=e, **round_widths(cfg, r))
+        loci_w = locus_dp.locus_dp_walk(tt, cfg_w, q, ql)[0]
+        if "locus" in name:
+            ms = cuda_ms(lambda: locus_dp.locus_dp_walk(tt, cfg_w, q, ql), 20)
+            ls = locus_dp.launch_shape(cfg_w, L_BUCKET)
+            rate = (16 + 4 * cfg_w.tele_width if "packed" not in name
+                    else 2 + 4 + 4 * cfg_w.tele_width)
+            nbytes = (B * L_BUCKET * 4 + B * 4 + B * cfg_w.frontier * 4
+                      + B * 4 + n_chars * rate)
+            shape = (f"F={cfg_w.frontier}, {ls.threads} threads, "
+                     f"{ls.shared} B shared, workspace {ls.ws_stride}")
+        else:
+            ms = cuda_ms(lambda: beam_topk.beam_topk_batch(
+                tt, cfg_w, loci_w, K), 20)
+            found = int((beam_topk.beam_topk_batch(tt, cfg_w, loci_w, K)[1]
+                         >= 0).sum())
+            keys, threads, shared = beam_topk.launch_shape(cfg_w, K)
+            per_locus = 12 if "packed" in name else 8
+            per_found = (4 + w_esc + 1 + 4 + w_sid if "packed" in name
+                         else 13)
+            nbytes = (B * cfg_w.frontier * 4 + B * K * 8 + B
+                      + int((loci_w >= 0).sum()) * per_locus
+                      + found * per_found)
+            shape = (f"F={cfg_w.frontier} W={cfg_w.gens} max_steps="
+                     f"{cfg_w.max_steps}, {threads} threads, {shared} B "
+                     "shared")
+        bound_ms, bound_by = bound(nbytes, n_chars * 8 if "locus" in name
+                                   else found * 8)
+        by_width.setdefault(name, []).append(
+            {"E": e, "width": w, "launches": n, "ms": ms,
+             "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"time {name} E={e} {'F' if 'locus' in name else 'W'}={w} "
+            f"({shape}): {ms:.4f} ms kernel, {n} main-path launches, bound "
+            f"{bound_ms:.6f} ms ({bound_by}), loss {n * (ms - bound_ms):.3f} "
+            "ms")
+    for row in rows:
+        if row["name"] in by_width:
+            row["by_width"] = by_width[row["name"]]
     for k_name, (mod, attr) in counters.items():
         setattr(mod, attr, saved[k_name])
     log("build seconds: " + json.dumps(

@@ -7,14 +7,17 @@ emission tables sit in device memory, so one kernel
 an emission accessor for the dense and the packed layout (two C entry
 points, ``beam_topk_launch`` and ``beam_topk_packed_launch``).  One
 thread block per query keeps the pool (W), the result heap (k) and
-``dropped_max`` in shared memory; each ``lax.top_k`` of the reference is a
-block-wide bitonic sort on ``(INT_MAX - bound) << 32 | column``, and the
-block loops while the reference's condition holds.
+``dropped_max`` in shared memory, and loops while the reference's
+condition holds.  The first step sorts as ``lax.top_k`` does, on
+``(INT_MAX - bound) << 32 | column``; it leaves the pool in key order, so
+every later step pops columns 0..P-1, re-bounds only those, and merges the
+2P changed entries into the sorted run (and the P leaves into the heap)
+by rank, with two block barriers a step.
 
-Bound on the H100: the block-wide sorts and their synchronisation — a
-query reads only the emissions it pops and the pointer pairs it re-arms.
-It takes every width the main path sends, the widened retry rounds
-included (up to W=3072, max_steps=32768 at the default spec).
+Bound on the H100: the chain of block barriers and dependent emission
+loads — a query reads only the emissions it pops and the pointer pairs it
+re-arms.  It takes every width the main path sends, the widened retry
+rounds included (up to W=3072, max_steps=32768 at the default spec).
 
 :func:`beam_topk_batch` launches the kernel for CUDA tensors and answers
 CPU tensors with :func:`beam_topk_plain`, the plain PyTorch version
@@ -37,6 +40,8 @@ from repro_torch.kernels import _build
 #: on the packed layout
 launches = 0
 packed_launches = 0
+#: the same launches by width: (layout, edit budget, pool width) -> count
+width_launches: dict[tuple[str, int, int], int] = {}
 
 #: the plain version: the engine's reference priority search
 beam_topk_plain = beam.beam_topk
@@ -53,12 +58,17 @@ def _pow2(n: int) -> int:
 
 def launch_shape(cfg: EngineConfig, k: int):
     """(sort-key capacity, threads, shared bytes) of one block; raises
-    when the shared memory exceeds what a block may have."""
+    when the shared memory exceeds what a block may have.  The keys hold
+    the first step's sorts; the block has a thread per two keys (one warp
+    at the default widths), and a later step's merges stride over its
+    W + P pool entries by it."""
     W, P = cfg.gens, cfg.expand
     keys = _pow2(max(W + P, k + P))
     threads = min(1024, max(32, keys // 2))
-    ints = 3 * W + 3 * (W + P) + 2 * k + 2 * (k + P) + 2 * P
-    shared = 8 * keys + 4 * ints
+    # pool and next pool, heap and next heap, the first step's popped
+    # columns and flags, a later step's 2P changed entries and P leaves
+    ints = 3 * W + 3 * (W + P) + 2 * k + 2 * (k + P) + 2 * P + 8 * P
+    shared = 8 * (keys + 3 * P) + 4 * ints
     if shared > _build.MAX_SHARED_BYTES:
         raise ValueError(
             f"beam_topk: W={W}, P={P}, k={k} need {shared} bytes of shared "
@@ -153,4 +163,6 @@ def beam_topk_batch(t: DeviceTrie, cfg: EngineConfig, loci: torch.Tensor,
         packed_launches += 1
     else:
         launches += 1
+    key = ("packed" if packed else "dense", cfg.edit_budget, cfg.gens)
+    width_launches[key] = width_launches.get(key, 0) + 1
     return scores, sids, exact

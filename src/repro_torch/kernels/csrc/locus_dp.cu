@@ -34,35 +34,54 @@
 //
 // One thread block per query.  The (L+1, F) frontier buffer lives in
 // dynamic shared memory for the whole sweep, and so do the candidate,
-// scan and scan2 rows of one merge when they fit; past the 227 KB a block
-// may have, the wrapper gives each block a slice of a device-memory
+// merged and window rows of one merge when they fit; past the 227 KB a
+// block may have, the wrapper gives each block a slice of a device-memory
 // workspace for them (and, past that, for the frontier too).  At each
-// position i:
+// position i up to the query's last character:
 //   - literal step: row i+1 gets the dict and synonym children of row i
-//     labelled q[i] (one lower-bound search per frontier entry), and at
-//     E > 0 the insert and substitute states;
+//     labelled q[i] (one lower-bound search per live state), and at E > 0
+//     the insert and substitute states;
 //   - rule steps: thread 0 descends the rule trie from position i; every
 //     full-lhs match (at most `rule_matches` per position, counted per
 //     term) looks up (anchor, rule) in the link store for each dict node
-//     of row i and merges the targets into the row where the lhs ends —
-//     only when some target exists;
+//     of row i and merges the targets into the row where the lhs ends;
 //   - write-back: row i+1 is complete, so its teleport targets are merged
 //     in, then the E delete rounds.
-// Every merge is a block-wide bitonic sort of the candidate row (padded to
-// a power of two with INT_MAX for empty) and a prefix-sum compaction: ids
-// ascending, the first F kept, overflow += max(uniques - F, 0) — exactly
-// `dedup_pad`.  The final row drops synonym loci, is deduplicated again,
-// and loses every id covered by another's preorder interval [id, tout).
-// The states are decoded to nodes before that step.
+// Every merge keeps `dedup_pad`'s result exactly: ids ascending, the first
+// F kept, overflow += max(uniques - F, 0).  The final row drops synonym
+// loci, is deduplicated again, and loses every id covered by another's
+// preorder interval [id, tout).  The states are decoded to nodes first.
 //
 // Bound: the bytes a query must read are a pointer pair, a few characters
-// and a child per live frontier entry and position, plus teleport and link
-// rows — small next to the work of keeping the frontier canonical, so the
-// kernel is bound by block-wide synchronisation and the latency of its
-// dependent table loads, not by bandwidth.  What the design does about it:
-// the frontier and every merge stay in shared memory (no device-memory
-// traffic between positions), and the table lookups of one merge run in
-// parallel across the block's threads.
+// and a child per live state and position, plus teleport and link rows
+// (~1e-5 ms at the card's 3.35 TB/s for a batch of 64), so the kernel is
+// bound by its chain of block-wide barriers and the latency of its
+// dependent table loads.  The earlier design sorted every merge's padded
+// candidate row (the substitute and delete segments F x branch_width wide,
+// branch_width the root's fanout, ~90 % empty) by a block-wide bitonic
+// sort and compacted it by a Hillis-Steele scan, one barrier per stage,
+// at all L = 32 positions: at F = 32, ~70 barrier stages a position at
+// E = 0 (the literal merge of 128 slots: 28 sort stages + 7 scan steps,
+// then the teleport merge) and ~160 at E >= 1 (1,024-slot sorts).  This
+// design:
+//   - ends the sweep at the query's last character (rows past it hold no
+//     state, and their merges add no overflow);
+//   - forms candidates only for live states, the substitute and delete
+//     children laid out by an exclusive prefix over the live states'
+//     child windows (not F x branch_width), and compacts the live ones by
+//     warp ballot and one shared counter;
+//   - skips a merge with no live candidate (the row stands, no overflow);
+//   - sorts only the next power of two of the live count, and merges the
+//     target row (sorted and unique already) with it by merge path, then
+//     deduplicates by ballot and popcount — in warp 0 alone, synchronised
+//     by __syncwarp, up to 256 sorted slots, else by the block;
+//   - finalizes in warp 0: the row's nodes are already sorted, and the
+//     antichain test is a running max of tout (was O(F^2) a query).
+// Block barriers a position at F = 32: 4 at E = 0 (candidates, publish;
+// for the literal and the teleport merge), 10 at E = 1 (+ the windows of
+// the literal step and of one delete round, and its merge), 14 at E = 2;
+// a merge's sort stages in between are warp-synchronous.  The block has
+// 4F threads (at most 512): one per slot of the widest common merge.
 #include <cuda_runtime.h>
 
 #include "tables.cuh"
@@ -91,7 +110,6 @@ struct Shape {
   int max_terms;
   int cand_cap;
   int edit_budget;    // E
-  int branch_width;   // BW: the widest child window
   int buf_in_ws;      // the frontier rows live in the workspace
   int cand_in_ws;     // the candidate / scan rows live in the workspace
   long long ws_stride;   // workspace ints of one block
@@ -322,13 +340,63 @@ struct PackedTables {
   }
 };
 
-// Ascending bitonic sort of a[0, n), n a power of two.  Called by every
-// thread of the block after a[] is written and synchronised; returns
-// synchronised.
+constexpr unsigned kFull = 0xffffffffu;
+// The largest block (its launch bound): 512 threads of up to 128 registers
+// fit an SM's 65,536.
+constexpr int kMaxThreads = 512;
+// Merges whose sorted candidates fit this many slots run in warp 0 alone,
+// synchronised by __syncwarp: no block barrier between the candidates'
+// barrier and the one that publishes the row.
+constexpr int kWarpMergeMax = 256;
+
+// Slots of the block's small scratch (`sc`, after the query characters,
+// the rule matches and the row lengths).
+constexpr int kCount = 0;    // two candidate counters, used by turns
+constexpr int kTotal = 2;    // uniques of the last merge
+constexpr int kWin = 3;      // child windows of the last row_windows
+constexpr int kMatch = 4;    // rule matches of this position
+constexpr int kWarpTotals = 5;   // 32 per-warp counts (block compaction)
+constexpr int kScratch = kWarpTotals + 32;
+
+__device__ __forceinline__ unsigned lanes_below() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+// First index in [lo, hi) of a sorted int32 table with a[idx] > x.
+__device__ __forceinline__ int upper_bound(const int* a, int lo, int hi,
+                                           int x) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The threads that run one merge: warp 0 alone, or the whole block.
+struct WarpGroup {
+  static constexpr bool kBlock = false;
+  __device__ static int rank() { return threadIdx.x & 31; }
+  __device__ static int size() { return 32; }
+  __device__ static void sync() { __syncwarp(); }
+};
+struct BlockGroup {
+  static constexpr bool kBlock = true;
+  __device__ static int rank() { return threadIdx.x; }
+  __device__ static int size() { return blockDim.x; }
+  __device__ static void sync() { __syncthreads(); }
+};
+
+// Ascending bitonic sort of a[0, n), n a power of two, by the group;
+// returns synchronised.
+template <class G>
 __device__ void bitonic_sort(int* a, int n) {
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
+      for (int i = G::rank(); i < (n >> 1); i += G::size()) {
         const int lo = 2 * i - (i & (stride - 1));
         const int hi = lo + stride;
         const bool up = (lo & size) == 0;
@@ -339,140 +407,232 @@ __device__ void bitonic_sort(int* a, int n) {
           a[hi] = x;
         }
       }
+      G::sync();
+    }
+  }
+}
+
+// out[0, na + nb) = the sorted a[0, na) and b[0, nb) merged, a first on
+// ties: each element lands at its own index plus its rank in the other
+// list (merge path by binary search).  Returns synchronised.
+template <class G>
+__device__ void merge_sorted(const int* a, int na, const int* b, int nb,
+                             int* out) {
+  for (int i = G::rank(); i < na + nb; i += G::size()) {
+    if (i < na) {
+      const int x = a[i];
+      out[i + lower_bound(b, 0, nb, x)] = x;
+    } else {
+      const int y = b[i - na];
+      out[i - na + upper_bound(a, 0, na, y)] = y;
+    }
+  }
+  G::sync();
+}
+
+// The distinct values of the sorted m[0, n), ascending, into
+// dst[0, min(u, F)) by ballot and popcount; returns u to the group.
+template <class G>
+__device__ int compact_unique(const int* m, int n, int* dst, int F,
+                              int* warp_totals) {
+  int base = 0;
+  for (int c = 0; c < n; c += G::size()) {
+    const int i = c + G::rank();
+    const bool keep = i < n && (i == 0 || m[i] != m[i - 1]);
+    const unsigned bal = __ballot_sync(kFull, keep);
+    int off = __popc(bal & lanes_below());
+    int chunk = __popc(bal);
+    if (G::kBlock) {   // add the counts of the warps before this one
+      const int w = threadIdx.x >> 5;
+      if ((threadIdx.x & 31) == 0) warp_totals[w] = chunk;
       __syncthreads();
+      chunk = 0;
+      for (int x = 0; x < (int)(blockDim.x >> 5); ++x) {
+        const int v = warp_totals[x];
+        if (x < w) off += v;
+        chunk += v;
+      }
+      __syncthreads();   // the totals are rewritten by the next chunk
     }
+    if (keep && base + off < F) dst[base + off] = m[i];
+    base += chunk;
   }
+  return base;
 }
 
-__device__ __forceinline__ bool first_of_run(const int* a, int i) {
-  return a[i] != kIntMax && (i == 0 || a[i] != a[i - 1]);
+// dst (sorted, unique, its first na live) U the sorted cand[0, nb), into
+// dst; returns the uniques.  cand is padded to a power of two in place.
+template <class G>
+__device__ int merge_group(int* dst, int na, int* cand, int nb, int* merged,
+                           int F, int* warp_totals) {
+  const int n = pow2_at_least(nb);
+  for (int j = nb + G::rank(); j < n; j += G::size()) cand[j] = kIntMax;
+  G::sync();
+  bitonic_sort<G>(cand, n);
+  merge_sorted<G>(dst, na, cand, nb, merged);
+  return compact_unique<G>(merged, na + nb, dst, F, warp_totals);
 }
 
-// Sort cand[0, n) and write its unique ids, ascending, into out[0, width)
-// (-1 padded).  Returns max(#unique - width, 0) to every thread.
-__device__ int sort_compact(int* cand, int n, int* out, int width,
-                            int* scan, int* scan2) {
-  bitonic_sort(cand, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    scan[i] = first_of_run(cand, i) ? 1 : 0;
+// One reference merge: row dst (sorted, unique, *len live, -1 after) U
+// the candidates gen(0..slots) (-1 for none), deduplicated back into dst;
+// returns its overflow max(uniques - F, 0) to every thread.  The live
+// candidates are compacted first (a warp ballot and one shared counter:
+// their order is free, since they are sorted next), so only they are
+// sorted, and dst, sorted already, is merged with them by merge path.
+// A merge with no live candidate leaves dst as it is (uniques <= F).
+// `turn` alternates the two counters: thread 0 clears the one the next
+// merge uses while this one's count is read.
+template <class Gen>
+__device__ int merge_into(int* dst, int* len, int F, int slots, Gen gen,
+                          int* cand, int* merged, int* sc, int& turn) {
+  int* counter = sc + kCount + turn;
+  if (threadIdx.x == 0) sc[kCount + (turn ^ 1)] = 0;
+  turn ^= 1;
+  for (int j0 = 0; j0 < slots; j0 += blockDim.x) {
+    const int j = j0 + threadIdx.x;
+    const int v = j < slots ? gen(j) : -1;
+    const unsigned bal = __ballot_sync(kFull, v >= 0);
+    if (bal) {
+      int base = 0;
+      if ((threadIdx.x & 31) == 0) base = atomicAdd(counter, __popc(bal));
+      base = __shfl_sync(kFull, base, 0);
+      if (v >= 0) cand[base + __popc(bal & lanes_below())] = v;
+    }
   }
   __syncthreads();
-  int* src = scan;
-  int* dst = scan2;
-  for (int off = 1; off < n; off <<= 1) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      dst[i] = src[i] + (i >= off ? src[i - off] : 0);
-    }
-    __syncthreads();
-    int* tmp = src;
-    src = dst;
-    dst = tmp;
-  }
-  const int total = src[n - 1];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (first_of_run(cand, i)) {
-      const int r = src[i] - 1;
-      if (r < width) out[r] = cand[i];
-    }
-  }
-  for (int j = threadIdx.x; j < width; j += blockDim.x) {
-    if (j >= total) out[j] = -1;
-  }
-  __syncthreads();
-  return total > width ? total - width : 0;
-}
-
-// row [F] += its teleport targets (each at its source's edit count),
-// deduplicated back to [F]; returns the overflow of the merge.
-template <class T>
-__device__ int tele_expand(const T& t, int* row, int F, int e1, int* cand,
-                           int* scan, int* scan2) {
-  const int tw = t.tele_width;
-  const int total = F * (1 + tw);
-  const int n = pow2_at_least(total);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int v = -1;
-    if (j < F) {
-      v = row[j];
-    } else if (j < total) {
-      const int st = row[(j - F) / tw];
-      const int node = state_node(st, e1);
-      if (node >= 0) {
-        v = encode(t.tele(node, (j - F) % tw), state_edits(st, e1), e1);
+  const int nb = *counter;
+  if (nb == 0) return 0;   // uniform
+  if (pow2_at_least(nb) <= kWarpMergeMax) {
+    if (threadIdx.x < 32) {
+      const int total = merge_group<WarpGroup>(dst, *len, cand, nb, merged,
+                                               F, nullptr);
+      if (threadIdx.x == 0) {
+        *len = min(total, F);
+        sc[kTotal] = total;
       }
     }
-    cand[j] = v < 0 ? kIntMax : v;
+  } else {
+    const int total = merge_group<BlockGroup>(dst, *len, cand, nb, merged, F,
+                                              sc + kWarpTotals);
+    if (threadIdx.x == 0) {
+      *len = min(total, F);
+      sc[kTotal] = total;
+    }
   }
   __syncthreads();
-  return sort_compact(cand, n, row, F, scan, scan2);
+  const int total = sc[kTotal];
+  return total > F ? total - F : 0;
 }
 
-// The child window of every state of row [F] into (lo[f], cnt[f]); cnt is
-// 0 for an empty slot and for a state with no edit left (d == E).
-// Returns synchronised.
+// The child windows of row[0, n) into (wlo[f], wcnt[f]) — cnt 0 for a
+// state with no edit left (d == E) — and their exclusive prefix wpre
+// (warp 0, by shuffles); returns the windows' total to every thread.
 template <class T>
-__device__ void row_windows(const T& t, const int* row, int F, int E,
-                            int* lo, int* cnt) {
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
+__device__ int row_windows(const T& t, const int* row, int n, int E,
+                           int* wlo, int* wcnt, int* wpre, int* sc) {
+  for (int f = threadIdx.x; f < n; f += blockDim.x) {
     const int node = state_node(row[f], E + 1);
     int l = 0;
     int c = 0;
     if (node >= 0 && state_edits(row[f], E + 1) < E) t.window(node, &l, &c);
-    lo[f] = l;
-    cnt[f] = c;
+    wlo[f] = l;
+    wcnt[f] = c;
   }
   __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int base = 0;
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      const int i = c0 + lane;
+      const int own = i < n ? wcnt[i] : 0;
+      int v = own;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, v, o);
+        if (lane >= o) v += y;
+      }
+      if (i < n) wpre[i] = base + v - own;
+      base += __shfl_sync(kFull, v, 31);
+    }
+    if (lane == 0) sc[kWin] = base;
+  }
+  __syncthreads();
+  return sc[kWin];
 }
 
-// One delete round over row [F]: every dict child of a state with d < E,
-// at d+1, merged into the row; returns the overflow of the merge.  The
-// windows sit in scan/scan2 until the candidates are formed.
+// The window of slot s in [0, total): the last f with wpre[f] <= s (its
+// count is > 0), and the column w within it.
+__device__ __forceinline__ int window_of(const int* wpre, int n, int s,
+                                         int* w) {
+  const int f = upper_bound(wpre, 0, n, s) - 1;
+  *w = s - wpre[f];
+  return f;
+}
+
+// row (its *len live states) += its teleport targets (each at its
+// source's edit count); returns the overflow of the merge.
 template <class T>
-__device__ int delete_round(const T& t, int* row, int F, int E, int BW,
-                            int* cand, int* scan, int* scan2) {
-  row_windows(t, row, F, E, scan, scan2);
-  const int total = F * (1 + BW);
-  const int n = pow2_at_least(total);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int v = -1;
-    if (j < F) {
-      v = row[j];
-    } else if (j < total) {
-      const int f = (j - F) / BW;
-      const int w = (j - F) % BW;
-      if (w < scan2[f]) {
+__device__ int tele_expand(const T& t, int* row, int* len, int F, int e1,
+                           int* cand, int* merged, int* sc, int& turn) {
+  const int tw = t.tele_width;
+  const int slots = *len * tw;
+  if (slots == 0) return 0;
+  return merge_into(
+      row, len, F, slots,
+      [&](int j) {
+        const int st = row[j / tw];
+        return encode(t.tele(state_node(st, e1), j % tw),
+                      state_edits(st, e1), e1);
+      },
+      cand, merged, sc, turn);
+}
+
+// One delete round over row: every dict child of a state with d < E, at
+// d+1; returns the overflow of the merge.
+template <class T>
+__device__ int delete_round(const T& t, int* row, int* len, int F, int E,
+                            int* cand, int* merged, int* win, int* sc,
+                            int& turn) {
+  const int n = *len;
+  if (n == 0) return 0;
+  int* wlo = win;
+  int* wcnt = wlo + F;
+  int* wpre = wcnt + F;
+  const int slots = row_windows(t, row, n, E, wlo, wcnt, wpre, sc);
+  if (slots == 0) return 0;
+  return merge_into(
+      row, len, F, slots,
+      [&](int s) {
+        int w;
+        const int f = window_of(wpre, n, s, &w);
         int ch, child;
-        t.window_at(scan[f], w, &ch, &child);
-        v = encode(child, state_edits(row[f], E + 1) + 1, E + 1);
-      }
-    }
-    cand[j] = v < 0 ? kIntMax : v;
-  }
-  __syncthreads();
-  return sort_compact(cand, n, row, F, scan, scan2);
+        t.window_at(wlo[f], w, &ch, &child);
+        return encode(child, state_edits(row[f], E + 1) + 1, E + 1);
+      },
+      cand, merged, sc, turn);
 }
 
 // The fixpoint of a completed row: its teleports, then E delete rounds.
 template <class T>
-__device__ int expand_row(const T& t, int* row, int F, int E, int BW,
-                          int* cand, int* scan, int* scan2) {
+__device__ int expand_row(const T& t, int* row, int* len, int F, int E,
+                          int* cand, int* merged, int* win, int* sc,
+                          int& turn) {
   int overflow = 0;
   if (t.teleports > 0) {
-    overflow += tele_expand(t, row, F, E + 1, cand, scan, scan2);
+    overflow += tele_expand(t, row, len, F, E + 1, cand, merged, sc, turn);
   }
   for (int r = 0; r < E; ++r) {
-    overflow += delete_round(t, row, F, E, BW, cand, scan, scan2);
+    overflow += delete_round(t, row, len, F, E, cand, merged, win, sc, turn);
   }
   return overflow;
 }
 
 template <class T>
-__global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
-                                const int* __restrict__ queries,
-                                const int* __restrict__ qlens,
-                                int* __restrict__ workspace,
-                                int* __restrict__ loci_out,
-                                int* __restrict__ overflow_out) {
+__global__ void __launch_bounds__(kMaxThreads)
+    locus_dp_kernel(T t, RuleTables r, Shape s,
+                    const int* __restrict__ queries,
+                    const int* __restrict__ qlens,
+                    int* __restrict__ workspace, int* __restrict__ loci_out,
+                    int* __restrict__ overflow_out) {
   extern __shared__ int smem[];
   const int F = s.frontier;
   const int L = s.seq_len;
@@ -480,7 +640,6 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
   const int C = s.cand_cap;
   const int E = s.edit_budget;
   const int E1 = E + 1;
-  const int BW = s.branch_width;
   const int b = blockIdx.x;
   int* sm = smem;
   int* ws = workspace == nullptr ? nullptr
@@ -493,78 +652,96 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
     buf = sm;
     sm += (L + 1) * F;
   }
-  int* cand;                           // C candidates of one merge
+  int* cand;                           // C compacted candidates
   if (s.cand_in_ws) {
     cand = ws;
   } else {
     cand = sm;
     sm += 3 * C;
   }
-  int* scan = cand + C;                // C
-  int* scan2 = scan + C;               // C
+  int* merged = cand + C;              // C: a row merged with them
+  int* win = merged + C;               // 3F: child windows of one row
   int* q = sm;                         // L query characters
   int* m_rule = q + L;                 // M rule matches of one position
   int* m_end = m_rule + (M > 0 ? M : 1);
-  __shared__ int n_match;
+  int* rowlen = m_end + (M > 0 ? M : 1);   // L + 1 live counts
+  int* sc = rowlen + L + 1;            // kScratch ints
 
   const int* qrow = queries + (long long)b * L;
   for (int i = threadIdx.x; i < (L + 1) * F; i += blockDim.x) buf[i] = -1;
   for (int i = threadIdx.x; i < L; i += blockDim.x) q[i] = qrow[i];
+  for (int i = threadIdx.x; i <= L; i += blockDim.x) rowlen[i] = 0;
+  for (int i = threadIdx.x; i < kScratch; i += blockDim.x) sc[i] = 0;
   __syncthreads();
-  if (threadIdx.x == 0) buf[0] = 0;   // the root at d=0 encodes to 0
+  if (threadIdx.x == 0) {
+    buf[0] = 0;   // the root at d=0 encodes to 0
+    rowlen[0] = 1;
+  }
   __syncthreads();
+  // the sweep ends at the query's last character: past it a row has no
+  // state and no merge adds overflow
+  int n_pos = 0;
+  for (int i = 0; i < L; ++i) {
+    if (q[i] >= 0) n_pos = i + 1;
+  }
+  int turn = 0;
 
   // the same in every thread: merges return it to all
-  int overflow = expand_row(t, buf, F, E, BW, cand, scan, scan2);
+  int overflow = expand_row(t, buf, rowlen, F, E, cand, merged, win, sc,
+                            turn);
 
   const int has_syn = t.has_syn() ? 1 : 0;
-  for (int i = 0; i < L; ++i) {
+  for (int i = 0; i < n_pos; ++i) {
     const int* row = buf + i * F;
     int* nxt = buf + (i + 1) * F;
     const int c = q[i];
+    const int n = rowlen[i];
 
     // literal step: row i+1 U dict children U synonym children, and at
-    // E > 0 U insert states U substitute states (segments of F, F, F,
-    // F and F*BW candidates)
+    // E > 0 U insert states U substitute states (slots of n, n, n and
+    // one per child-window column)
     const bool edits = E > 0 && c >= 0;
-    if (edits) row_windows(t, row, F, E, scan, scan2);
-    const int off_ins = (2 + has_syn) * F;
-    const int off_sub = off_ins + (edits ? F : 0);
-    const int total = off_sub + (edits ? F * BW : 0);
-    const int n = pow2_at_least(total);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      int v = -1;
-      if (j < F) {
-        v = nxt[j];
-      } else if (j < off_ins) {
-        const int f = j < 2 * F ? j - F : j - 2 * F;
-        const int st = row[f];
-        const int node = state_node(st, E1);
-        const int ch = j < 2 * F ? t.dict_child(node, c)
-                                 : t.syn_child(node, c);
-        v = encode(ch, state_edits(st, E1), E1);
-      } else if (j < off_sub) {
-        // insert: the query has an extra character; mid-variant
-        // (synonym) nodes absorb none
-        const int st = row[j - off_ins];
-        const int node = state_node(st, E1);
-        const int d = state_edits(st, E1);
-        if (node >= 0 && d < E && !t.is_syn(node)) v = node * E1 + d + 1;
-      } else if (j < total) {
-        // substitute: every dict child not labelled c (the matching one
-        // rides the literal part); the window is empty at d == E
-        const int f = (j - off_sub) / BW;
-        const int w = (j - off_sub) % BW;
-        if (w < scan2[f]) {
-          int ch, child;
-          t.window_at(scan[f], w, &ch, &child);
-          if (ch != c) v = encode(child, state_edits(row[f], E1) + 1, E1);
-        }
-      }
-      cand[j] = v < 0 ? kIntMax : v;
+    int* wlo = win;
+    int* wcnt = wlo + F;
+    int* wpre = wcnt + F;
+    const int n_sub =
+        edits && n > 0 ? row_windows(t, row, n, E, wlo, wcnt, wpre, sc) : 0;
+    const int off_ins = (1 + has_syn) * n;
+    const int off_sub = off_ins + (edits ? n : 0);
+    const int slots = off_sub + n_sub;
+    if (slots > 0) {
+      overflow += merge_into(
+          nxt, rowlen + i + 1, F, slots,
+          [&](int j) {
+            if (j < off_ins) {
+              const int f = j < n ? j : j - n;
+              const int st = row[f];
+              const int node = state_node(st, E1);
+              const int ch = j < n ? t.dict_child(node, c)
+                                   : t.syn_child(node, c);
+              return encode(ch, state_edits(st, E1), E1);
+            }
+            if (j < off_sub) {
+              // insert: the query has an extra character; mid-variant
+              // (synonym) nodes absorb none
+              const int st = row[j - off_ins];
+              const int node = state_node(st, E1);
+              const int d = state_edits(st, E1);
+              return node >= 0 && d < E && !t.is_syn(node)
+                         ? node * E1 + d + 1
+                         : -1;
+            }
+            // substitute: every dict child not labelled c (the matching
+            // one rides the literal part); no window at d == E
+            int w;
+            const int f = window_of(wpre, n, j - off_sub, &w);
+            int ch, child;
+            t.window_at(wlo[f], w, &ch, &child);
+            return ch != c ? encode(child, state_edits(row[f], E1) + 1, E1)
+                           : -1;
+          },
+          cand, merged, sc, turn);
     }
-    __syncthreads();
-    overflow += sort_compact(cand, n, nxt, F, scan, scan2);
 
     // rule steps through the link store
     if (M > 0) {
@@ -585,76 +762,74 @@ __global__ void locus_dp_kernel(T t, RuleTables r, Shape s,
             }
           }
         }
-        n_match = cnt;
+        sc[kMatch] = cnt;
       }
       __syncthreads();
-      const int nm = n_match;
+      const int nm = n > 0 ? sc[kMatch] : 0;
       for (int m = 0; m < nm; ++m) {
         const int rid = m_rule[m];
-        int* dst = buf + m_end[m] * F;
-        int any = 0;
-        for (int j = threadIdx.x; j < F; j += blockDim.x) {
-          const int a = state_node(row[j], E1);
-          int tg = -1;
-          if (a >= 0 && !t.is_syn(a)) {
-            tg = encode(t.link(a, rid), state_edits(row[j], E1), E1);
-          }
-          cand[F + j] = tg < 0 ? kIntMax : tg;
-          any |= tg >= 0;
-        }
-        if (__syncthreads_or(any)) {
-          const int n2 = pow2_at_least(2 * F);
-          for (int j = threadIdx.x; j < n2; j += blockDim.x) {
-            if (j < F) {
-              cand[j] = dst[j] < 0 ? kIntMax : dst[j];
-            } else if (j >= 2 * F) {
-              cand[j] = kIntMax;
-            }
-          }
-          __syncthreads();
-          overflow += sort_compact(cand, n2, dst, F, scan, scan2);
-        }
+        const int end = m_end[m];
+        overflow += merge_into(
+            buf + end * F, rowlen + end, F, n,
+            [&](int j) {
+              const int a = state_node(row[j], E1);
+              return a >= 0 && !t.is_syn(a)
+                         ? encode(t.link(a, rid), state_edits(row[j], E1),
+                                  E1)
+                         : -1;
+            },
+            cand, merged, sc, turn);
       }
-      __syncthreads();   // n_match and m_* are rewritten next position
+      __syncthreads();   // sc[kMatch] and m_* are rewritten next position
     }
 
     // write-back: row i+1 is complete (rule ends are > i), expand it
-    overflow += expand_row(t, nxt, F, E, BW, cand, scan, scan2);
+    overflow += expand_row(t, nxt, rowlen + i + 1, F, E, cand, merged, win,
+                           sc, turn);
   }
 
-  // finalize the row at the query's own length
-  int ql = qlens[b];
-  ql = ql < 0 ? 0 : (ql > L ? L : ql);
-  const int* row = buf + ql * F;
-  const int n = pow2_at_least(F);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    int v = j < F ? state_node(row[j], E1) : -1;   // states -> nodes
-    if (v >= 0 && t.is_syn(v)) v = -1;
-    cand[j] = v < 0 ? kIntMax : v;
-  }
-  __syncthreads();
-  int* fin = buf;   // row 0 is no longer read: the row was copied to cand
-  sort_compact(cand, n, fin, F, scan, scan2);
-  int* fin_tout = scan;   // each locus's subtree end, read once
-  for (int j = threadIdx.x; j < F; j += blockDim.x) {
-    fin_tout[j] = fin[j] >= 0 ? t.tout(fin[j]) : 0;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < F; j += blockDim.x) {
-    const int x = fin[j];
-    int res = x;
-    if (x >= 0) {
-      for (int g = 0; g < F; ++g) {
-        const int y = fin[g];
-        if (g != j && y >= 0 && y <= x && x < fin_tout[g]) {
-          res = -1;
-          break;
-        }
+  // finalize the row at the query's own length (warp 0).  The row is
+  // sorted by state, so its nodes (state / (E+1)) are non-decreasing:
+  // dropping synonym nodes and the repeats of a node keeps it sorted, and
+  // a locus is covered by another's preorder interval [id, tout) iff the
+  // running max of tout over the smaller loci exceeds it.
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int ql = qlens[b];
+    ql = ql < 0 ? 0 : (ql > L ? L : ql);
+    const int* row = buf + ql * F;
+    const int n = rowlen[ql];
+    int* fin = cand;
+    int nf = 0;
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      const int i = c0 + lane;
+      int v = -1;
+      bool keep = false;
+      if (i < n) {
+        v = state_node(row[i], E1);
+        keep = !t.is_syn(v) && (i == 0 || state_node(row[i - 1], E1) != v);
       }
+      const unsigned bal = __ballot_sync(kFull, keep);
+      if (keep) fin[nf + __popc(bal & lanes_below())] = v;
+      nf += __popc(bal);
     }
-    loci_out[(long long)b * F + j] = res;
+    __syncwarp();
+    int carry = -1;   // the largest tout of the loci before this chunk
+    for (int c0 = 0; c0 < F; c0 += 32) {
+      const int j = c0 + lane;
+      const int x = j < nf ? fin[j] : -1;
+      int incl = x >= 0 ? t.tout(x) : -1;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl = max(incl, y);
+      }
+      int excl = __shfl_up_sync(kFull, incl, 1);
+      excl = max(lane == 0 ? -1 : excl, carry);
+      if (j < F) loci_out[(long long)b * F + j] = x >= 0 && excl > x ? -1 : x;
+      carry = max(carry, __shfl_sync(kFull, incl, 31));
+    }
+    if (lane == 0) overflow_out[b] = overflow;
   }
-  if (threadIdx.x == 0) overflow_out[b] = overflow;
 }
 
 template <class T>
@@ -689,7 +864,7 @@ RuleTables rule_tables(const void* r_first_child, const void* r_edge_char,
 }
 
 Shape shape(int frontier, int seq_len, int rule_matches, int max_lhs_len,
-            int max_terms, int cand_cap, int edit_budget, int branch_width,
+            int max_terms, int cand_cap, int edit_budget,
             int buf_in_ws, int cand_in_ws, long long ws_stride) {
   Shape s;
   s.frontier = frontier;
@@ -699,7 +874,6 @@ Shape shape(int frontier, int seq_len, int rule_matches, int max_lhs_len,
   s.max_terms = max_terms;
   s.cand_cap = cand_cap;
   s.edit_budget = edit_budget;
-  s.branch_width = branch_width;
   s.buf_in_ws = buf_in_ws;
   s.cand_in_ws = cand_in_ws;
   s.ws_stride = ws_stride;
@@ -718,7 +892,7 @@ extern "C" int locus_dp_launch(
     const void* r_edge_child, int n_r_edges, const void* r_term_plane,
     int term_width, int frontier, int seq_len, int rule_matches,
     int max_lhs_len, int max_terms, int cand_cap, int edit_budget,
-    int branch_width, int buf_in_ws, int cand_in_ws, long long ws_stride,
+    int buf_in_ws, int cand_in_ws, long long ws_stride,
     int threads, int shared_bytes, const void* queries, const void* qlens,
     int batch, void* workspace, void* loci_out, void* overflow_out,
     void* stream) {
@@ -744,8 +918,7 @@ extern "C" int locus_dp_launch(
                 rule_tables(r_first_child, r_edge_char, r_edge_child,
                             n_r_edges, r_term_plane, term_width),
                 shape(frontier, seq_len, rule_matches, max_lhs_len,
-                      max_terms, cand_cap, edit_budget, branch_width,
-                      buf_in_ws, cand_in_ws, ws_stride),
+                      max_terms, cand_cap, edit_budget, buf_in_ws, cand_in_ws, ws_stride),
                 threads, shared_bytes, queries, qlens, batch, workspace,
                 loci_out, overflow_out, stream);
 }
@@ -762,7 +935,7 @@ extern "C" int locus_dp_packed_launch(
     const void* r_edge_char, const void* r_edge_child, int n_r_edges,
     const void* r_term_plane, int term_width, int frontier, int seq_len,
     int rule_matches, int max_lhs_len, int max_terms, int cand_cap,
-    int edit_budget, int branch_width, int buf_in_ws, int cand_in_ws,
+    int edit_budget, int buf_in_ws, int cand_in_ws,
     long long ws_stride, int threads, int shared_bytes, const void* queries,
     const void* qlens, int batch, void* workspace, void* loci_out,
     void* overflow_out, void* stream) {
@@ -799,8 +972,7 @@ extern "C" int locus_dp_packed_launch(
                 rule_tables(r_first_child, r_edge_char, r_edge_child,
                             n_r_edges, r_term_plane, term_width),
                 shape(frontier, seq_len, rule_matches, max_lhs_len,
-                      max_terms, cand_cap, edit_budget, branch_width,
-                      buf_in_ws, cand_in_ws, ws_stride),
+                      max_terms, cand_cap, edit_budget, buf_in_ws, cand_in_ws, ws_stride),
                 threads, shared_bytes, queries, qlens, batch, workspace,
                 loci_out, overflow_out, stream);
 }

@@ -8,18 +8,21 @@ templated on a table accessor for the dense and the packed layout (two C
 entry points, ``locus_dp_launch`` and ``locus_dp_packed_launch``).  It
 serves dense tt/et/ht indexes and every packed index, the plain kind
 included (the packed layout has no dense CSR for the prefix walk).
-One thread block per
-query keeps the whole (L+1, F) frontier buffer in shared memory; every
-merge is a block-wide bitonic sort of the candidate row and a prefix-sum
-compaction, bit-identical to ``dedup_pad`` (ids ascending, first F kept,
-overflow += max(uniques - F, 0)).  At an edit budget E > 0 the frontier
-holds the states ``node*(E+1)+d`` and the sweep adds the substitute,
-insert and delete transitions of ``core/engine/locus.py``; every merge
-stays one merge, so the overflow counts are the reference's.
+One thread block per query keeps the whole (L+1, F) frontier buffer in
+shared memory and sweeps it up to the query's last character; every
+merge compacts its live candidates by warp ballot, sorts only those,
+merges the sorted target row with them by merge path and deduplicates by
+ballot (in one warp, with no block barrier, up to 256 sorted slots),
+bit-identical to ``dedup_pad`` (ids ascending, first F kept, overflow +=
+max(uniques - F, 0)).  At an edit budget E > 0 the frontier holds the
+states ``node*(E+1)+d`` and the sweep adds the substitute, insert and
+delete transitions of ``core/engine/locus.py``, their children laid out
+by a prefix over the live states' child windows; every merge stays one
+merge, so the overflow counts are the reference's.
 
-Bound on the H100: block-wide synchronisation and dependent table loads,
-not bandwidth — a query reads a few bytes per live frontier entry and
-position.  The frontier never leaves shared memory between positions.
+Bound on the H100: the chain of block-wide barriers and dependent table
+loads, not bandwidth — a query reads a few bytes per live frontier entry
+and position.  The frontier never leaves shared memory between positions.
 
 Shared memory is sized from (L, F, tele_width, E, branch_width).  When
 the candidate rows of the largest merge do not fit beside the frontier in
@@ -49,6 +52,8 @@ from repro_torch.kernels import _build
 #: CUDA tensors of a dense index adds one) and on the packed layout
 launches = 0
 packed_launches = 0
+#: the same launches by width: (layout, edit budget, frontier) -> count
+width_launches: dict[tuple[str, int, int], int] = {}
 
 #: the plain version: the engine's reference frontier DP
 locus_dp_plain = locus.locus_dp
@@ -65,10 +70,10 @@ def _pow2(n: int) -> int:
 
 class LaunchShape(NamedTuple):
     cand: int          # candidate capacity of one merge (a power of two)
-    threads: int
+    threads: int       # 4F, at least a warp, at most MAX_THREADS
     shared: int        # dynamic shared bytes of one block
     buf_in_ws: int     # the (L+1, F) frontier rows live in the workspace
-    cand_in_ws: int    # the candidate, scan and scan2 rows do
+    cand_in_ws: int    # the candidate, merged and window rows do
     ws_stride: int     # workspace int32s of one block (0: no workspace)
 
 
@@ -85,15 +90,32 @@ def merge_widths(cfg: EngineConfig) -> dict[str, int]:
             "teleport": F * (1 + cfg.tele_width) if cfg.teleports else 0}
 
 
+#: the kernel's largest block (``kMaxThreads``, its launch bound: 512
+#: threads of up to 128 registers fit an SM's 65,536)
+MAX_THREADS = 512
+#: the kernel's small scratch (``kScratch``): two candidate counters, the
+#: last merge's uniques, the windows' total, the rule matches' count and
+#: 32 per-warp counts
+_SCRATCH = 37
+
+
+def fixed_ints(cfg: EngineConfig, seq_len: int) -> int:
+    """Shared int32s of one block beside its rows: the query, the rule
+    matches of one position, the live count of every row and the
+    scratch."""
+    return (seq_len + 2 * max(cfg.rule_matches, 1) + seq_len + 1
+            + _SCRATCH)
+
+
 def launch_shape(cfg: EngineConfig, seq_len: int) -> LaunchShape:
     """Where one block keeps its rows: all in shared memory when they fit
     the 227 KB a block may have, else the candidate rows (then the
     frontier too) in a device-memory workspace slice."""
     F = cfg.frontier
     cand = _pow2(max(merge_widths(cfg).values()))
-    threads = min(1024, max(32, cand // 2))
+    threads = min(MAX_THREADS, max(32, 4 * _pow2(F)))   # whole warps
     frontier = (seq_len + 1) * F
-    small = seq_len + 2 * max(cfg.rule_matches, 1)
+    small = fixed_ints(cfg, seq_len)
     for buf_in_ws, cand_in_ws in ((0, 0), (0, 1), (1, 1)):
         shared = 4 * (small + (0 if buf_in_ws else frontier)
                       + (0 if cand_in_ws else 3 * cand))
@@ -113,7 +135,7 @@ def launch_shape(cfg: EngineConfig, seq_len: int) -> LaunchShape:
 
 
 #: the rule-trie, shape and output arguments both entry points end with
-_TAIL = ([_V, _V, _V, _I, _V, _I] + [_I] * 10 + [_LL, _I, _I]
+_TAIL = ([_V, _V, _V, _I, _V, _I] + [_I] * 9 + [_LL, _I, _I]
          + [_V, _V, _I, _V, _V, _V, _V])
 
 
@@ -223,8 +245,8 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
         int(t.r_edge_char.shape[0]), p(t.r_term_plane),
         int(t.r_term_plane.shape[1]),
         F, L, cfg.rule_matches, cfg.max_lhs_len, cfg.max_terms_per_node,
-        ls.cand, cfg.edit_budget, cfg.branch_width, ls.buf_in_ws,
-        ls.cand_in_ws, ls.ws_stride, ls.threads, ls.shared,
+        ls.cand, cfg.edit_budget, ls.buf_in_ws, ls.cand_in_ws,
+        ls.ws_stride, ls.threads, ls.shared,
         p(queries), p(qlens), B, None if ws is None else p(ws), p(loci),
         p(overflow), _build.stream(dev))
     _build.check_launch("locus_dp", err)
@@ -232,4 +254,6 @@ def locus_dp_walk(t: DeviceTrie, cfg: EngineConfig, queries: torch.Tensor,
         packed_launches += 1
     else:
         launches += 1
+    key = ("packed" if packed else "dense", cfg.edit_budget, F)
+    width_launches[key] = width_launches.get(key, 0) + 1
     return loci, overflow

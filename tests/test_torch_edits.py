@@ -324,7 +324,9 @@ def test_cuda_substrate_routes_edit_walks_to_locus_dp():
 def test_launch_shape_sizes_the_largest_merge():
     """The candidate rows hold the largest merge of a step: the literal
     step's F·(4+BW) at E > 0, the delete round's F·(1+BW), the
-    teleports' F·(1+Tw)."""
+    teleports' F·(1+Tw).  The block has 4F threads (whole warps, at most
+    512), one per slot of the widest common merge, whatever the candidate
+    capacity."""
     from repro_torch.core.engine.structs import EngineConfig
 
     cfg = EngineConfig(frontier=32, branch_width=37, teleports=2,
@@ -334,8 +336,11 @@ def test_launch_shape_sizes_the_largest_merge():
     assert widths == {"literal": 32 * 41, "rule": 64, "delete": 32 * 38,
                       "teleport": 128}
     ls = locus_dp.launch_shape(replace(cfg, edit_budget=2), 32)
-    assert ls.cand == 2048 and ls.threads == 1024
+    assert ls.cand == 2048 and ls.threads == 128
     assert (ls.buf_in_ws, ls.cand_in_ws, ls.ws_stride) == (0, 0, 0)
+    # whole warps (the merges ballot and shuffle), 512 at most
+    assert [locus_dp.launch_shape(replace(cfg, frontier=f), 32).threads
+            for f in (2, 8, 100, 256)] == [32, 32, 512, 512]
 
 
 @pytest.mark.parametrize("F,L,where", [
@@ -352,6 +357,30 @@ def test_launch_shape_moves_rows_to_a_workspace(F, L, where):
     assert (ls.buf_in_ws, ls.cand_in_ws) == where
     assert ls.shared <= 232_448
     assert ls.ws_stride == 3 * 16384 * where[1] + (L + 1) * F * where[0]
+
+
+@pytest.mark.parametrize("W,F,plan", [
+    (48, 32, (64, 32, 2496)), (192, 64, (256, 128, 7488)),
+    (768, 128, (1024, 512, 27456)), (3072, 256, (4096, 1024, 107328))])
+def test_beam_launch_shape_at_the_retry_widths(W, F, plan):
+    """The beam's block at the default widths and each retry round's (W
+    x4 a round): sort keys for the first step's W + P, one thread per two
+    keys (one warp at W = 48), and the shared bytes of the keys, both
+    pools, both heaps and a later step's 2P changed entries and P
+    leaves."""
+    from repro_torch.core.engine.structs import EngineConfig
+    from repro_torch.kernels import beam_topk
+
+    cfg = EngineConfig(frontier=F, gens=W)
+    assert (cfg.expand, beam_topk.launch_shape(cfg, 10)) == (8, plan)
+
+
+def test_beam_launch_shape_raises_past_shared_memory():
+    from repro_torch.core.engine.structs import EngineConfig
+    from repro_torch.kernels import beam_topk
+
+    with pytest.raises(ValueError, match="shared memory"):
+        beam_topk.launch_shape(EngineConfig(gens=8192), 10)
 
 
 def test_launch_shape_raises_past_int32_offsets():
