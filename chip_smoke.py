@@ -25,10 +25,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    a batch of queries of 1 and of 32 characters; the beam at every
    round's widths on two tie-heavy USPS ET 100k corpora (every score
    equal; scores drawn from three values); ``trie_walk``;
-   ``locus_topk_merge`` on the dense and the packed K=16 cache,
-   ``k >= F*K`` included; ``topk_select``
-   at the rule-free cached route's shape (C=K=16, k=10) and on [64, 512]
-   rows with seeded ties; ``candidate_topk`` at 1 query x 1,000,000
+   ``locus_topk_merge`` on the dense and the packed K=16 cache of USPS ET
+   1M (1.4M stored nodes, read through the rank tree) and of the two
+   tie-heavy corpora, at F = 1 to 64 (every keys-a-lane template of the
+   warp path) and 65 and 128 (the block path), k = 1, 10, 16, F*K and
+   F*K + 88, and on every packed cache tier (DBLP TT's u16 sids, a USPS
+   plain 100k corpus with scores spread over 2^30 for int32 scores);
+   ``topk_select`` at the rule-free cached route's shape (C=K=16, k=10
+   and 16) and at C = 1 to 2,048 (every template and the block path) on
+   rows of ties, of one score and of unsorted int32 scores, k = 1, 10
+   and C; ``candidate_topk`` at 1 query x 1,000,000
    candidates x D=64, k=100, in float32 and bfloat16, at three ragged
    shapes, at D=33 on a misaligned slice (the scalar-load path), on all
    scores equal (ids exactly 0..k-1), on scores ascending by id (every row
@@ -68,8 +74,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``candidate_topk`` and ``embedding_bag`` and their library calls also
    with the host out (the 20 calls captured once in a CUDA graph, the
    replay timed) and the host microseconds per call (1,000 calls, no
-   synchronise); print one JSON line of kernels, the card, and, last, the
-   device line.
+   synchronise), ``locus_topk_merge`` so also on the dense cache with the
+   packed run's loci (the gap is the rank lookups' cost); print one JSON
+   line of kernels, the card, and, last, the device line.
 
 ``--small`` runs every phase on small corpora (a quick compile-and-check).
 Without a CUDA device the script exits non-zero and prints no result.
@@ -301,6 +308,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # -- phase 2: the indexes -------------------------------------------------------
+    log(f"phase 2 at {time.perf_counter() - t_start:.1f} s")
     n_dblp, n_usps_plain, n_usps_et = ((2_000, 5_000, 20_000) if args.small
                                        else (24_810, 100_000, 1_000_000))
     builds = {}
@@ -351,7 +359,9 @@ def main() -> int:
         log(f"derive {name}: {builds[name]:.3f} s, device tensors "
             f"{device_bytes(out)} B = {device_bytes(out) / n:.1f} B/string"
             + (f", packed layout + rule trie {host / n:.1f} B/string "
-               f"(tiers {dict(out.cfg.table_widths)})" if host else ""))
+               f"(tiers {dict(out.cfg.table_widths)}, "
+               f"{int(out.tensors.c_ids.shape[0])} stored nodes)"
+               if host else ""))
         return out
 
     dblp = make_dblp(n_dblp, seed=0)
@@ -386,12 +396,34 @@ def main() -> int:
         idx = build(f"USPS scores {tie}", ds, "et")
         tie_indexes[tie] = (idx, derive(f"USPS ET scores {tie} packed", idx,
                                         idx.trie, "packed"))
+    # the cached merge's corpora beside USPS ET 1M: the tie-heavy ones with
+    # a cache (dense and packed), DBLP TT packed with a cache (its sids fit
+    # the u16 tier) and USPS plain 100k with scores spread over 2^30 (its
+    # cache scores take the int32 tier)
+    merge_indexes = {}
+    for tie in TIE_SCORES:
+        idx = tie_indexes[tie][0]
+        trie_c = cached_trie(idx)
+        merge_indexes[f"scores {tie}"] = (
+            derive(f"USPS ET scores {tie} cache_k=16", idx, trie_c, "none"),
+            derive(f"USPS ET scores {tie} packed cache_k=16", idx, trie_c,
+                   "packed"))
+    wide = build("USPS scores wide", dataclasses.replace(
+        usps_small, scores=np.random.default_rng(6).integers(
+            0, 2**30, len(usps_small.strings))), "plain")
+    tier_indexes = {
+        "DBLP TT": derive("DBLP TT packed cache_k=16", dblp_tt,
+                          cached_trie(dblp_tt), "packed"),
+        "USPS scores wide": derive("USPS plain scores wide packed cache_k=16",
+                                   wide, cached_trie(wide), "packed")}
+    del wide
 
     def batch(ds, seed, n=B):
         qs, ql = pad_queries(make_workload(ds, n, seed=seed), L_BUCKET)
         return (torch.from_numpy(qs).to(dev), torch.from_numpy(ql).to(dev))
 
     # -- phase 3: each kernel against its plain version -------------------------
+    log(f"phase 3 at {time.perf_counter() - t_start:.1f} s")
     log("kernel parity (kernel vs plain version on the card):")
     loci_sets = {}
     for name, idx, ds in (("DBLP TT", dblp_tt, dblp),
@@ -565,42 +597,75 @@ def main() -> int:
                                      "differ")
     log("  tie-heavy corpora: packed and dense beams equal at every width")
 
-    # the cached merge on both cache layouts, k < F*K, k == F*K, k > F*K
-    loci_et = loci_sets["USPS ET", "default"][2]
-    F = int(loci_et.shape[1])
-    for name, idx in (("USPS ET cache", usps_et_c),
-                      ("USPS ET packed cache", usps_et_pc)):
-        for k in (K, CACHE_K, F * CACHE_K, F * CACHE_K + 88):
-            got = locus_merge.locus_topk_merge(idx.tensors, loci_et, k)
-            want = locus_merge.locus_merge_plain(idx.tensors, loci_et, k)
-            check_equal("locus_topk_merge", f"{name} F={F} K={CACHE_K} "
-                        f"k={k}", got, want)
-        one = loci_et[:, :1].contiguous()
-        got = locus_merge.locus_topk_merge(idx.tensors, one, CACHE_K + 4)
-        check_equal("locus_topk_merge", f"{name} F=1 k=K+4", got,
-                    locus_merge.locus_merge_plain(idx.tensors, one,
-                                                  CACHE_K + 4))
-    # topk_select at the rule-free cached route's shape and on wide rows
+    # the cached merge at every width of the warp path (F*K = 16 to 1,024
+    # at K=16: 1 to 32 keys a lane) and on the block path (F = 65, 128),
+    # k = 1, k < K, K, F*K and past it, on both layouts of USPS ET 1M
+    # (1.4M stored nodes: the rank tree's five levels) and of the
+    # tie-heavy corpora; then each packed cache tier
+    merge_sets = [("USPS ET", usps_et_c, usps_et_pc,
+                   loci_sets["USPS ET", "retry"][2])]
+    q, ql = batch(usps_small, seed=1)
+    for tie in TIE_SCORES:
+        idx = tie_indexes[tie][0]
+        cfg = replace(idx.cfg, **RETRY)
+        merge_sets.append((f"scores {tie}", *merge_indexes[f"scores {tie}"],
+                           locus_dp.locus_dp_walk(idx.tensors, cfg, q,
+                                                  ql)[0]))
+    for name, dense_c, packed_c, loci64 in merge_sets:
+        # every template on USPS ET; the widest of each path on the others
+        for F in ((1, 2, 4, 8, 16, 32, 64, 65, 128) if name == "USPS ET"
+                  else (32, 64, 65)):
+            lo = torch.cat([loci64, loci64], 1)[:, :F].contiguous()
+            keys, threads, _ = locus_merge.launch_plan(F, CACHE_K, B)
+            for k in sorted({1, K, CACHE_K, F * CACHE_K, F * CACHE_K + 88}):
+                for layout, idx in (("dense", dense_c), ("packed", packed_c)):
+                    got = locus_merge.locus_topk_merge(idx.tensors, lo, k)
+                    want = locus_merge.locus_merge_plain(idx.tensors, lo, k)
+                    check_equal("locus_topk_merge", f"{name} {layout} F={F} "
+                                f"({keys} keys a lane, {threads} threads) "
+                                f"k={k}", got, want)
+    for name, idx, ds in (("USPS ET packed", usps_et_pc, usps),
+                          ("DBLP TT", tier_indexes["DBLP TT"], dblp),
+                          ("USPS scores wide",
+                           tier_indexes["USPS scores wide"], usps_small)):
+        tiers = {n: w for n, w in idx.cfg.table_widths if n.startswith("pc_")}
+        q, ql = batch(ds, seed=1)
+        lo = locus_dp.locus_dp_walk(idx.tensors, idx.cfg, q, ql)[0]
+        F = int(lo.shape[1])
+        for k in (K, F * CACHE_K + 88):
+            got = locus_merge.locus_topk_merge(idx.tensors, lo, k)
+            check_equal("locus_topk_merge", f"{name} cache tiers {tiers} "
+                        f"k={k}", got,
+                        locus_merge.locus_merge_plain(idx.tensors, lo, k))
+    # topk_select at the rule-free cached route's shape, then at every
+    # width of the warp path (1 to 32 keys a lane) and on the block path
+    # (C = 1,025 and 2,048), on rows of ties, of one score, and of
+    # unsorted scores over the whole int32 range
     q, ql = batch(usps_small, seed=1)
     node, depth = trie_walk.trie_walk(tp.first_child, tp.edge_char,
                                       tp.edge_child, q, ql)
     loci_plain = torch.where(depth == ql, node, -1)[:, None].contiguous()
     sel_s, sel_p = cached.gather_cached(usps_plain_c.tensors, loci_plain)
-    got = topk_select.topk_select(sel_s, sel_p, K)
-    check_equal("topk_select", f"USPS plain cache C={CACHE_K} k={K}", got,
-                topk_select.topk_select_plain(sel_s, sel_p, K))
-    got = topk_select.topk_select(sel_s, sel_p, CACHE_K)
-    check_equal("topk_select", f"USPS plain cache k=C={CACHE_K}", got,
-                topk_select.topk_select_plain(sel_s, sel_p, CACHE_K))
+    for k in (K, CACHE_K):
+        got = topk_select.topk_select(sel_s, sel_p, k)
+        check_equal("topk_select", f"USPS plain cache C={CACHE_K} k={k}", got,
+                    topk_select.topk_select_plain(sel_s, sel_p, k))
     gen = torch.Generator().manual_seed(0)
-    wide_s = torch.randint(0, 40, (64, 512), generator=gen,
-                           dtype=torch.int32).to(dev)
-    wide_p = torch.randint(0, 10**6, (64, 512), generator=gen,
-                           dtype=torch.int32).to(dev)
-    for k in (K, 512):
-        got = topk_select.topk_select(wide_s, wide_p, k)
-        check_equal("topk_select", f"[64, 512] seeded ties k={k}", got,
-                    topk_select.topk_select_plain(wide_s, wide_p, k))
+    for C in (1, 16, 17, 33, 100, 250, 512, 1024, 1025, 2048):
+        keys, threads = topk_select.launch_plan(C, B)
+        rows = {"ties": torch.randint(0, 4, (B, C), generator=gen),
+                "one score": torch.full((B, C), 7),
+                "unsorted": torch.randint(-2**31, 2**31 - 1, (B, C),
+                                          generator=gen)}
+        pay = torch.randint(-1, 10**6, (B, C), generator=gen,
+                            dtype=torch.int32).to(dev)
+        for kind, sc in rows.items():
+            sc = sc.to(torch.int32).to(dev)
+            for k in sorted({1, min(K, C), C}):
+                got = topk_select.topk_select(sc, pay, k)
+                check_equal("topk_select", f"[{B}, {C}] {kind} ({keys} keys "
+                            f"a lane, {threads} threads) k={k}", got,
+                            topk_select.topk_select_plain(sc, pay, k))
 
     # the off-path kernels, on inputs made on the card from a seed
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -717,6 +782,7 @@ def main() -> int:
     del table33
 
     # -- phase 4: the main path ---------------------------------------------------
+    log(f"phase 4 at {time.perf_counter() - t_start:.1f} s")
     counters = {
         "trie_walk": (trie_walk, "launches"),
         "locus_dp": (locus_dp, "launches"),
@@ -921,6 +987,7 @@ def main() -> int:
     log("Figure 1 typos at edit_budget=1: tt/et/ht answers as expected")
 
     # -- phase 5: kernel times and bounds at the main path's shapes ---------------
+    log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
     q, ql = batch(usps, seed=1)
     q_plain, ql_plain = batch(usps_small, seed=1)
     t_et, cfg_et = usps_et.tensors, usps_et.cfg
@@ -1117,6 +1184,12 @@ def main() -> int:
     host_out = [(n, by_name[n][3], by_name[n][5]) for n in (
         "topk_select", "locus_topk_merge", "candidate_topk",
         "embedding_bag")]
+    # the merge on the dense cache with the packed run's loci (the two
+    # layouts' loci are equal): the gap to the packed row is the rank
+    # lookups' cost
+    host_out.append(("locus_topk_merge dense cache",
+                     lambda: locus_merge.locus_topk_merge(tc, loci_etp, K),
+                     None))
     host_out.append(("embedding_bag dense entry",
                      lambda: embedding_bag.embedding_bag_dense(bag_table,
                                                                *bag_dense),
@@ -1127,13 +1200,20 @@ def main() -> int:
                 continue
             g_ms, why = graph_ms(fn, 20)
             h_us = host_us(fn, 1000)
-            log(f"time {name} {who}: {cuda_ms(fn, 20):.4f} ms back to back, "
+            b2b = cuda_ms(fn, 20)
+            log(f"time {name} {who}: {b2b:.4f} ms back to back, "
                 + (f"{g_ms:.4f} ms in a CUDA graph" if why is None
                    else f"not measured in a CUDA graph ({why})")
                 + f", host {h_us:.2f} us a call")
-            row = next((r for r in rows if r["name"] == name), None)
+            # the dense-cache merge is kept in the merge's row
+            dense = name.endswith(" dense cache")
+            row_name = name.removesuffix(" dense cache")
+            row = next((r for r in rows if r["name"] == row_name), None)
             if row is not None:
-                pre = "" if who == "kernel" else "library_"
+                pre = ("" if who == "kernel" else "library_") + (
+                    "dense_cache_" if dense else "")
+                if dense:
+                    row[pre + "ms"] = b2b
                 row[pre + "graph_ms"] = g_ms
                 row[pre + "host_us"] = h_us
     for e in (1, 2):

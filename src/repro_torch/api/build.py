@@ -154,6 +154,7 @@ def build_index(strings, scores, rules, spec: IndexSpec | None = None, *,
         link_tile=trie.link_tile,
         use_cache=spec.cache_k > 0, cache_k=spec.cache_k,
         substrate=resolve_substrate(spec.substrate, device),
+        memory_budget=spec.memory_budget,
         compression=spec.compression,
         table_widths=tuple(sorted(widths.items())),
     )

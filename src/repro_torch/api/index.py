@@ -12,6 +12,7 @@ the same shapes.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import replace
 
 import numpy as np
@@ -21,15 +22,17 @@ from repro_torch.api.build import BuildStats
 from repro_torch.api.spec import IndexSpec
 from repro_torch.core import trie_build as tb
 from repro_torch.core.alphabet import pad_queries
+from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine import substrate as subs
 from repro_torch.core.engine.structs import (DeviceTrie, EngineConfig,
                                              resolve_device)
 from repro_torch.not_ported import not_ported
 
 #: IndexSpec fields :meth:`CompletionIndex.reconfigure` may change
-RUNTIME_FIELDS = ("substrate", "frontier", "gens", "expand", "max_steps",
-                  "edit_budget")
-
+RUNTIME_FIELDS = ("substrate", "memory_budget", "frontier", "gens",
+                  "expand", "max_steps", "edit_budget")
+#: fields baked into the built structures; changing them means a rebuild
+BUILD_FIELDS = ("kind", "alpha", "cache_k", "compression", "multiterm_gap")
 
 
 def bucket_size(n: int, minimum: int = 8) -> int:
@@ -67,6 +70,7 @@ def _to_device(trie: tb.DictTrie, rule_trie: tb.RuleTrie,
         z1 = j(np.zeros(0, np.int32))
         packed = {f: j(getattr(trie, f)) for f in tb.PACKED_ONLY_FIELDS
                   if getattr(trie, f) is not None}
+        packed["c_tree"] = pk.rank_tree(packed["c_ids"])
         return DeviceTrie(
             depth=z1, max_score=z1, leaf_score=z1, leaf_sid=z1,
             syn_mask=j(np.zeros(0, bool)), tout=z1,
@@ -124,6 +128,8 @@ class CompletionIndex:
         #: queries re-run by each widened retry round (1st, 2nd, 3rd),
         #: summed over every lookup since the index was made
         self.retried = [0, 0, 0]
+        #: bumped by every :meth:`reconfigure` that changes something
+        self.epoch = 0
 
     @classmethod
     def from_parts(cls, trie, rule_trie, rules, strings, scores, cfg,
@@ -143,6 +149,7 @@ class CompletionIndex:
             spec = IndexSpec(frontier=cfg.frontier, gens=cfg.gens,
                              expand=cfg.expand, max_steps=cfg.max_steps,
                              cache_k=cfg.cache_k,
+                             memory_budget=cfg.memory_budget,
                              compression=cfg.compression)
         validate_rule_planes(trie, rule_trie, cfg)
         return cls(spec, trie, rule_trie, list(rules), list(strings),
@@ -157,20 +164,54 @@ class CompletionIndex:
         """The resolved execution substrate lookups run on."""
         return self.cfg.substrate
 
+    @property
+    def memory_budget(self) -> int:
+        """The JAX package's VMEM budget, carried without effect on the
+        card (see :class:`~repro_torch.api.spec.IndexSpec`)."""
+        return self.cfg.memory_budget
+
     def reconfigure(self, **changes) -> "CompletionIndex":
         """Change runtime knobs (:data:`RUNTIME_FIELDS`) in one validated
-        step; returns ``self``."""
+        step; returns ``self``.  Build-time fields (:data:`BUILD_FIELDS`)
+        raise, changes equal to the current spec are dropped, and any
+        real change bumps :attr:`epoch`."""
+        build_time = set(changes) & set(BUILD_FIELDS)
+        if build_time:
+            raise ValueError(
+                f"{sorted(build_time)} are build-time fields baked into "
+                "the index structures; rebuild with build_index(...)")
         unknown = set(changes) - set(RUNTIME_FIELDS)
         if unknown:
             raise ValueError(
                 f"unknown reconfigure field(s) {sorted(unknown)}; "
                 f"runtime knobs are {RUNTIME_FIELDS}")
-        self.spec = self.spec.replace(**changes).validate()
+        changes = {k: v for k, v in changes.items()
+                   if getattr(self.spec, k) != v}
+        if not changes:
+            return self
+        spec = self.spec.replace(**changes).validate()
         if "substrate" in changes:
             changes["substrate"] = subs.resolve_substrate(
                 changes["substrate"], self.device)
+        self.spec = spec
         self.cfg = replace(self.cfg, **changes)
+        self.epoch += 1
         return self
+
+    def set_substrate(self, name: str) -> "CompletionIndex":
+        """Deprecated alias of ``reconfigure(substrate=...)``."""
+        warnings.warn(
+            "CompletionIndex.set_substrate() is deprecated; use "
+            "reconfigure(substrate=...)", DeprecationWarning, stacklevel=2)
+        return self.reconfigure(substrate=name)
+
+    def set_memory_budget(self, n: int) -> "CompletionIndex":
+        """Deprecated alias of ``reconfigure(memory_budget=...)``."""
+        warnings.warn(
+            "CompletionIndex.set_memory_budget() is deprecated; use "
+            "reconfigure(memory_budget=...)", DeprecationWarning,
+            stacklevel=2)
+        return self.reconfigure(memory_budget=n)
 
     # -- out-of-slice surfaces -------------------------------------------
 

@@ -35,10 +35,19 @@ class IndexSpec:
         tables, "packed" the compressed layout (chain-collapsed sparse
         side tables, u8/u16 tiers, a quantized cache); answers are
         bit-identical.
+    memory_budget: the JAX package's VMEM byte budget, which picks
+        between a Pallas kernel's VMEM-resident and DMA-streamed tiers.
+        Validated (>= 0) and carried into ``EngineConfig`` as the JAX
+        package does, but it has no effect here: on the card every table
+        sits in device memory and one CUDA kernel covers both tiers.  A
+        runtime knob (``CompletionIndex.reconfigure(memory_budget=...)``).
     edit_budget: bounded-edit (typo-tolerant) matching: up to this many
         single-character edits (substitute, insert, delete) on the
         dictionary side of a match, 0-2; a runtime knob
         (``CompletionIndex.reconfigure(edit_budget=...)``).  0 = exact.
+    multiterm_gap: the JAX package's multi-term skip width.  Only its
+        default is taken: multi-term completion is not ported yet, and
+        any other value raises ``NotImplementedError``.
     """
 
     kind: str = "et"
@@ -49,8 +58,10 @@ class IndexSpec:
     expand: int = 8
     max_steps: int = 512
     substrate: str = "auto"
+    memory_budget: int = 0
     compression: str = "none"
     edit_budget: int = 0
+    multiterm_gap: int = 2
 
     def validate(self) -> "IndexSpec":
         if self.kind == "multiterm":
@@ -71,14 +82,18 @@ class IndexSpec:
             raise ValueError(
                 f"unknown compression {self.compression!r}; expected "
                 "'none' or 'packed'")
-        if self.cache_k < 0:
-            raise ValueError("cache_k must be >= 0")
-        for name in ("frontier", "gens", "expand", "max_steps"):
+        for name in ("cache_k", "memory_budget"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        for name in ("frontier", "gens", "expand", "max_steps",
+                     "multiterm_gap"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be positive")
         if not 0 <= self.edit_budget <= 2:
             raise ValueError(
                 f"edit_budget must be in [0, 2], got {self.edit_budget}")
+        if self.multiterm_gap != 2:
+            raise not_ported("multiterm")
         return self
 
     def validate_sharded(self) -> "IndexSpec":

@@ -13,7 +13,8 @@ written out:
   ``primitives.csr_child_lookup`` over the dense CSR;
 - per-node data (``tout``, ``max_score``, emission lists, cache rows) of
   an unstored node equals its chain representative's — the first stored
-  id at or after it, one ``lower_bound`` over ``c_ids``;
+  id at or after it, one ``lower_bound`` over ``c_ids`` (the CUDA merge
+  reads it through :func:`rank_tree`, a search tree over ``c_ids``);
 - narrow (u8/u16) values widen to int32 at the read (:func:`widen`), so
   every comparison and merge downstream sees the same int32 values as
   the uncompressed path.
@@ -71,6 +72,48 @@ def _rank(ids: torch.Tensor, nodes: torch.Tensor):
                       nodes, iters_for(size))
     rc = pos.clamp(0, size - 1)
     return rc, (pos < size) & (ids[rc] == nodes)
+
+
+#: keys a node of :func:`rank_tree`: 64 bytes, four 16-byte loads
+TREE_FANOUT = 16
+
+
+def rank_tree_size(n: int) -> int:
+    """Keys of :func:`rank_tree` over ``n`` ids."""
+    size, keys = 0, n
+    while keys > TREE_FANOUT:
+        keys = -(-keys // TREE_FANOUT)
+        size += TREE_FANOUT * -(-keys // TREE_FANOUT)
+    return size
+
+
+def rank_tree(ids: torch.Tensor) -> torch.Tensor:
+    """A static 16-ary search tree over sorted int32 ``ids``, for the
+    CUDA merge's chain-representative rank (``tables.cuh`` ``tree_rank``).
+
+    Level m >= 1 holds ``ceil(n / 16**m)`` keys: key i is the largest id
+    of window i (entries ``[16 i, 16 i + 16)``) of the level below (level
+    0 being ``ids``), padded with INT_MAX to a multiple of 16.  Levels are
+    added while the one below has more than 16 keys, and stored top level
+    first, so the top level is one window.  A search reads one window a
+    level: ~log16(n) dependent 64-byte reads, where a binary search over
+    ``ids`` makes ~log2(n) dependent loads.  About n/15 keys; none for
+    n <= 16."""
+    levels = []
+    below = ids
+    while below.numel() > TREE_FANOUT:
+        n = below.numel()
+        keys = -(-n // TREE_FANOUT)
+        last = torch.arange(keys, device=ids.device) * TREE_FANOUT + \
+            (TREE_FANOUT - 1)
+        level = torch.full((TREE_FANOUT * -(-keys // TREE_FANOUT),),
+                           2**31 - 1, dtype=torch.int32, device=ids.device)
+        level[:keys] = below[last.clamp(max=n - 1)]
+        levels.append(level)
+        below = level[:keys]
+    if not levels:
+        return torch.zeros(0, dtype=torch.int32, device=ids.device)
+    return torch.cat(levels[::-1])
 
 
 def _children(t, ids, ptr, chars, children, unary_bit, nodes, ch):

@@ -98,6 +98,9 @@ class DeviceTrie(NamedTuple):
     pc_score: torch.Tensor | None = None      # u16/i32[C, K]
     pc_base: torch.Tensor | None = None       # i32[C]
     pc_sid: torch.Tensor | None = None        # u16/i32[C, K]
+    # the port's own: a static search tree over c_ids (packed.rank_tree),
+    # built on the device with the index, read by the CUDA cached merge
+    c_tree: torch.Tensor | None = None        # i32[~C/15]
 
 
 @dataclass(frozen=True)
@@ -128,6 +131,9 @@ class EngineConfig:
     use_cache: bool = False     # phase 2 via materialized top-K
     cache_k: int = 0
     substrate: str = "torch"    # execution substrate ("torch" | "cuda")
+    # the JAX package's VMEM budget (IndexSpec.memory_budget), carried so
+    # configs round-trip; no effect on the card (one kernel, both tiers)
+    memory_budget: int = 0
     # on-device layout: "none" keeps the uniform-i32 tables, "packed" the
     # compressed ones; table_widths records the dtype tier of each
     # tier-variable packed table as a sorted (name, dtype) tuple

@@ -170,7 +170,18 @@ def stream(device: torch.device) -> int:
     does not."""
     index = (device.index if device.index is not None
              else torch.cuda.current_device())
+    return raw_stream(index)
+
+
+def raw_stream(index: int) -> int:
+    """:func:`stream` of the CUDA device with this index."""
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of the CUDA device with this index."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 #: the per-block dynamic shared memory a kernel may ask for on Hopper

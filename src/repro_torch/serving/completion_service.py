@@ -38,12 +38,19 @@ class ServiceStats:
     latencies_ms: list = field(default_factory=list)
 
     @property
+    def mean_latency_ms(self) -> float:
+        return (self.total_seconds / max(self.n_queries, 1)) * 1e3
+
+    @property
     def p50_latency_ms(self) -> float:
         return _percentile(self.latencies_ms, 0.50)
 
     @property
     def p99_latency_ms(self) -> float:
         return _percentile(self.latencies_ms, 0.99)
+
+    def p99_ms(self) -> float:
+        return self.p99_latency_ms
 
 
 class CompletionService:

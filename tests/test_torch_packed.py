@@ -81,6 +81,9 @@ def _pair(corpus, kind, **kw):
 
 def _device_fields_equal(jax_dev, port_dev):
     for name in DeviceTrie._fields:
+        if not hasattr(jax_dev, name):   # the port's own: c_ids's tree
+            assert (port_dev.c_tree is None) == (port_dev.c_ids is None)
+            continue
         a, b = getattr(jax_dev, name), getattr(port_dev, name)
         if a is None:
             assert b is None, name
