@@ -24,7 +24,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    = 48 to 3,072; 16 queries past W = 192) on USPS ET and DBLP HT; both on
    a batch of queries of 1 and of 32 characters; the beam at every
    round's widths on two tie-heavy USPS ET 100k corpora (every score
-   equal; scores drawn from three values); ``trie_walk``;
+   equal; scores drawn from three values); ``trie_walk``, both entries
+   ((node, depth) and the loci of the rule-free phase 1), on USPS plain
+   100k's CSR, DBLP's dictionary CSR, a random byte-string corpus (root
+   row 255, deeper rows wider than 32) and an empty edge table, at L = 8,
+   32 and 64 and B = 1, 63, 64, 65 and 1,024, the loci also against the
+   ``"torch"`` substrate's walk;
    ``locus_topk_merge`` on the dense and the packed K=16 cache of USPS ET
    1M (1.4M stored nodes, read through the rank tree) and of the two
    tie-heavy corpora, at F = 1 to 64 (every keys-a-lane template of the
@@ -60,7 +65,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    on the ragged batch of 512 bags).  Every kernel of a path must launch
    in it, no plain version may run, the answers must equal the
    ``"torch"`` substrate's on
-   the same index (edit paths: on their first 128, at E = 2 64, queries),
+   the same index (edit paths: on their first 128, at E = 2 64, queries;
+   the USPS plain paths' phase 1 must be the loci entry's launches alone),
    and each packed index's answers must equal the dense index's of the
    same cache depth and edit budget (node ids are shared, so the layouts
    agree bit for bit);
@@ -75,8 +81,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    with the host out (the 20 calls captured once in a CUDA graph, the
    replay timed) and the host microseconds per call (1,000 calls, no
    synchronise), ``locus_topk_merge`` so also on the dense cache with the
-   packed run's loci (the gap is the rank lookups' cost); print one JSON
-   line of kernels, the card, and, last, the device line.
+   packed run's loci (the gap is the rank lookups' cost); ``trie_walk``
+   so too, with its loci entry and the rule-free ``walk_batch`` it
+   serves (which the profiler must show as one kernel a call); a
+   ``torch.profiler`` trace of one batch of each USPS plain path (the
+   device's busy share of the batch window, device time by kernel); print
+   one JSON line of kernels, the card, and, last, the device line.
 
 ``--small`` runs every phase on small corpora (a quick compile-and-check).
 Without a CUDA device the script exits non-zero and prints no result.
@@ -251,6 +261,98 @@ def host_us(fn, calls: int) -> float:
     return dt / calls * 1e6
 
 
+def walk_queries(strings, n: int, L: int, seed: int, dev):
+    """n queries of up to L bytes on the card for the prefix walk:
+    prefixes of the strings, strings typed on past their end (L bytes),
+    a random last byte, one byte, the empty query; every seventh row's
+    qlen runs two past its characters (-1 inside qlen)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.alphabet import pad_queries
+
+    rng = np.random.default_rng(seed)
+    pool = [s.encode() if isinstance(s, str) else s
+            for s in strings] or [b"abc"]
+    qs = []
+    for i in range(n):
+        s = pool[int(rng.integers(0, len(pool)))]
+        kind = i % 5
+        if kind == 0:
+            qs.append(s[:int(rng.integers(1, len(s) + 1))])
+        elif kind == 1:
+            qs.append(b" ".join([s] * (L // max(len(s), 1) + 2))[:L])
+        elif kind == 2:
+            qs.append(s[:int(rng.integers(0, len(s)))]
+                      + bytes([int(rng.integers(1, 256))]))
+        elif kind == 3:
+            qs.append(s[:1])
+        else:
+            qs.append(b"" if i % 10 == 4 else s)
+    q, ql = pad_queries(qs, L)
+    ql[6::7] = np.minimum(ql[6::7] + 2, L)
+    return torch.from_numpy(q).to(dev), torch.from_numpy(ql).to(dev)
+
+
+def kernel_name(name: str) -> str:
+    """A device event's name without its namespace, template arguments
+    and parameter list."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for sep in "<(":
+        name = name.split(sep)[0]
+    return name.split("::")[-1].strip()
+
+
+#: the profiler annotation around a traced batch
+BATCH_WINDOW = "chip_smoke batch"
+
+
+def device_events(prof) -> list:
+    """A profile's device events: kernels and copies, not the device-side
+    span of an annotation."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.name != BATCH_WINDOW]
+
+
+def device_kernels(prof) -> dict:
+    """Device events of a profile by kernel name: (count, total us)."""
+    out = {}
+    for ev in device_events(prof):
+        n, t = out.get(kernel_name(ev.name), (0, 0.0))
+        out[kernel_name(ev.name)] = (
+            n + 1, t + ev.time_range.end - ev.time_range.start)
+    return out
+
+
+def batch_trace(prof) -> str:
+    """The device's busy share of the ``BATCH_WINDOW`` span of a profile
+    (the union of its device events' spans over the window's length) and
+    device time by kernel name; "not measured" where the profile holds no
+    device event."""
+    from torch.autograd import DeviceType
+
+    window = [ev for ev in prof.events() if ev.name == BATCH_WINDOW
+              and ev.device_type == DeviceType.CPU]
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in device_events(prof))
+    if not window or not spans:
+        return "not measured (no device events)"
+    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    busy, reached = 0.0, w0
+    for s, e in spans:
+        s, e = max(s, reached), min(e, w1)
+        if e > s:
+            busy += e - s
+            reached = e
+    return (f"window {w1 - w0:.1f} us, device busy {busy:.1f} us "
+            f"({100 * busy / (w1 - w0):.1f} %), by kernel: "
+            + ", ".join(f"{k} {n}x {t:.2f} us"
+                        for k, (n, t) in device_kernels(prof).items()))
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -281,6 +383,7 @@ def main() -> int:
     from repro_torch.core import trie_build as tb
     from repro_torch.core.alphabet import pad_queries
     from repro_torch.core.engine import beam, cached, locus
+    from repro_torch.core.engine.substrate import get_substrate
     from repro_torch.core.trie_build import make_rules
     from repro_torch.data.strings import make_dblp, make_usps, make_workload
     from repro_torch.kernels import (_build, beam_topk, candidate_topk,
@@ -448,13 +551,57 @@ def main() -> int:
                 raise AssertionError(f"{layout} {label}: packed and dense "
                                      "loci differ")
     log("  dense and packed loci equal on DBLP TT, DBLP HT and USPS ET")
-    q, ql = batch(usps_small, seed=1)
+    # the prefix walk, both entries: on USPS plain 100k's CSR, DBLP's
+    # dictionary CSR (the DBLP TT index's), a corpus of random byte strings
+    # whose root row is 255 wide and whose second rows are wider than 32
+    # (read 32 edges a round), and an empty edge table; at L = 8, 32 and 64
+    # and B = 1, 63, 64, 65 and 1,024; the loci entry also against the
+    # torch substrate's walk on the same index
     tp = usps_plain.tensors
-    got = trie_walk.trie_walk(tp.first_child, tp.edge_char, tp.edge_child,
-                              q, ql)
-    want = trie_walk.trie_walk_plain(tp.first_child, tp.edge_char,
-                                     tp.edge_child, q, ql)
-    check_equal("trie_walk", "USPS plain", got, want)
+    walk_rng = np.random.default_rng(8)
+    wide_strings = [bytes([i]) + walk_rng.integers(
+        1, 256, walk_rng.integers(0, 8)).astype(np.uint8).tobytes()
+        for i in range(1, 256)]
+    wide_strings += [bytes([int(walk_rng.choice([97, 200]))])
+                     + walk_rng.integers(1, 256, walk_rng.integers(1, 40))
+                     .astype(np.uint8).tobytes() for _ in range(3000)]
+    wide_idx = rt.build_index(wide_strings, list(range(len(wide_strings))),
+                              [], kind="plain", device=dev)
+    fc = wide_idx.tensors.first_child.cpu()
+    widths = fc[1:] - fc[:-1]
+    if int(widths[0]) != 255 or int(widths[1:].max()) <= 32:
+        raise AssertionError("the wide-row corpus should have a root row of "
+                             "255 and a deeper row wider than 32; has "
+                             f"{int(widths[0])} and {int(widths[1:].max())}")
+    walk_tries = (
+        ("USPS plain", usps_plain, usps_small.strings, True),
+        ("DBLP TT dictionary", dblp_tt, dblp.strings, False),
+        (f"wide rows (root 255, widest below {int(widths[1:].max())})",
+         wide_idx, wide_strings, True),
+        ("empty", rt.build_index([], [], [], kind="plain", device=dev), [],
+         True))
+    torch_sub = get_substrate("torch")
+    for name, idx, strings, rule_free in walk_tries:
+        tw = idx.tensors
+        tables = (tw.first_child, tw.edge_char, tw.edge_child)
+        for L in (8, L_BUCKET, 64):
+            for n_q in (1, 63, B, 65, 1024):
+                q, ql = walk_queries(strings, n_q, L, n_q + L, dev)
+                what = (f"{name} L={L} B={n_q} lengths "
+                        f"{int(ql.min())}-{int(ql.max())}")
+                check_equal("trie_walk", what,
+                            trie_walk.trie_walk(*tables, q, ql),
+                            trie_walk.trie_walk_plain(*tables, q, ql))
+                got = trie_walk.trie_walk_loci(*tables, q, ql,
+                                               idx.cfg.frontier)
+                check_equal("trie_walk", what + " loci", got,
+                            trie_walk.trie_walk_loci_plain(
+                                *tables, q, ql, idx.cfg.frontier))
+                if rule_free and n_q == 65:
+                    check_equal("trie_walk", what + " loci against the "
+                                "torch substrate", got,
+                                torch_sub.walk_batch(tw, idx.cfg, q, ql))
+    del wide_idx
     for (name, label), (idx, cfg, loci) in loci_sets.items():
         kern = "beam_topk_packed" if "packed" in name else "beam_topk"
         got = beam_topk.beam_topk_batch(idx.tensors, cfg, loci, K)
@@ -642,9 +789,8 @@ def main() -> int:
     # (C = 1,025 and 2,048), on rows of ties, of one score, and of
     # unsorted scores over the whole int32 range
     q, ql = batch(usps_small, seed=1)
-    node, depth = trie_walk.trie_walk(tp.first_child, tp.edge_char,
-                                      tp.edge_child, q, ql)
-    loci_plain = torch.where(depth == ql, node, -1)[:, None].contiguous()
+    loci_plain = trie_walk.trie_walk_loci(tp.first_child, tp.edge_char,
+                                          tp.edge_child, q, ql, 1)[0]
     sel_s, sel_p = cached.gather_cached(usps_plain_c.tensors, loci_plain)
     for k in (K, CACHE_K):
         got = topk_select.topk_select(sel_s, sel_p, k)
@@ -785,6 +931,7 @@ def main() -> int:
     log(f"phase 4 at {time.perf_counter() - t_start:.1f} s")
     counters = {
         "trie_walk": (trie_walk, "launches"),
+        "trie_walk_loci": (trie_walk, "loci_launches"),
         "locus_dp": (locus_dp, "launches"),
         "locus_dp_packed": (locus_dp, "packed_launches"),
         "beam_topk": (beam_topk, "launches"),
@@ -901,8 +1048,17 @@ def main() -> int:
 
     record(main_path("USPS ET", usps_et, usps, ("locus_dp", "beam_topk")),
            "locus_dp", "beam_topk")
-    record(main_path("USPS plain", usps_plain, usps_small,
-                     ("trie_walk", "beam_topk")), "trie_walk")
+
+    def rule_free(c, name):
+        # the rule-free phase 1 runs as the loci entry's one launch
+        if c["trie_walk"] != c["trie_walk_loci"]:
+            raise AssertionError(f"{name}: {c['trie_walk']} walk launches, "
+                                 f"{c['trie_walk_loci']} of the loci entry")
+        return c
+
+    record(rule_free(main_path("USPS plain", usps_plain, usps_small,
+                               ("trie_walk_loci", "beam_topk")),
+                     "USPS plain"), "trie_walk")
     record(main_path("USPS ET packed", usps_et_p, usps,
                      ("locus_dp_packed", "beam_topk_packed")),
            "locus_dp_packed", "beam_topk_packed")
@@ -913,8 +1069,9 @@ def main() -> int:
     main_path("USPS ET cache_k=16", usps_et_c, usps,
               ("locus_dp", "locus_topk_merge"))
     same_answers("USPS ET packed cache_k=16", "USPS ET cache_k=16")
-    record(main_path("USPS plain cache_k=16", usps_plain_c, usps_small,
-                     ("trie_walk", "topk_select")), "topk_select")
+    record(rule_free(main_path("USPS plain cache_k=16", usps_plain_c,
+                               usps_small, ("trie_walk_loci", "topk_select")),
+                     "USPS plain cache_k=16"), "trie_walk", "topk_select")
 
     # bounded-edit completion: the built indexes reconfigured, no rebuild
     for name, idx, must in (
@@ -997,7 +1154,9 @@ def main() -> int:
     loci_etp = locus_dp.locus_dp_walk(t_etp, cfg_etp, q, ql)[0]
     node, depth = trie_walk.trie_walk(tp.first_child, tp.edge_char,
                                       tp.edge_child, q_plain, ql_plain)
-    loci_plain = torch.where(depth == ql_plain, node, -1)[:, None]
+    loci_plain = trie_walk.trie_walk_loci(tp.first_child, tp.edge_char,
+                                          tp.edge_child, q_plain, ql_plain,
+                                          1)[0]
     sel_s, sel_p = cached.gather_cached(usps_plain_c.tensors, loci_plain)
     scores, sids, _ = beam_topk.beam_topk_batch(t_et, cfg_et, loci_et, K)
     n_chars = int(ql.sum())
@@ -1165,57 +1324,92 @@ def main() -> int:
     log(f"time embedding_bag dense entry: {dense_ms:.4f} ms kernel, bound "
         f"{dense_bound:.6f} ms (bytes)")
     # candidate_topk's two kernels apart, by the profiler
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for q_t, c_t in ((cand_q, cands), (cand_q_bf16, cands_bf16)):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 candidate_topk.candidate_topk(q_t, c_t, CAND_K)
             torch.cuda.synchronize()
-        split = {ev.key.split("::")[-1].split("<")[0].split("(")[0]:
-                 getattr(ev, "device_time", None) or ev.cuda_time
-                 for ev in prof.key_averages() if "candidate_" in ev.key}
+        split = {k: t / 10 for k, (_, t) in device_kernels(prof).items()
+                 if k.startswith("candidate_")}
         log(f"profile candidate_topk {str(c_t.dtype)[6:]} (us a call, 10 "
             "calls): " + (", ".join(f"{k} {v:.2f}" for k, v in split.items())
                           if split else "not measured (no device events)"))
     # device time with the host out, and host time per call, for the rows
-    # whose back-to-back time may be the host's
+    # whose back-to-back time may be the host's: (label, the row that keeps
+    # the times, their keys' prefix, the call, whether the row also keeps
+    # its back-to-back time)
     by_name = {sp[0]: sp for sp in specs}
-    host_out = [(n, by_name[n][3], by_name[n][5]) for n in (
-        "topk_select", "locus_topk_merge", "candidate_topk",
-        "embedding_bag")]
+    host_out = []
+    for n in ("trie_walk", "topk_select", "locus_topk_merge",
+              "candidate_topk", "embedding_bag"):
+        host_out.append((f"{n} kernel", n, "", by_name[n][3], False))
+        if by_name[n][5] is not None:
+            host_out.append((f"{n} library", n, "library_", by_name[n][5],
+                             False))
+    # the rule-free phase 1 as the substrate runs it (kernel and the loci
+    # around it)
+    cuda_sub = get_substrate("cuda")
+    host_out.append(("trie_walk loci entry", "trie_walk", "loci_",
+                     lambda: trie_walk.trie_walk_loci(
+                         tp.first_child, tp.edge_char, tp.edge_child,
+                         q_plain, ql_plain, usps_plain.cfg.frontier), True))
+    host_out.append(("trie_walk rule-free walk_batch", "trie_walk",
+                     "walk_batch_", lambda: cuda_sub.walk_batch(
+                         tp, usps_plain.cfg, q_plain, ql_plain), True))
     # the merge on the dense cache with the packed run's loci (the two
     # layouts' loci are equal): the gap to the packed row is the rank
     # lookups' cost
-    host_out.append(("locus_topk_merge dense cache",
+    host_out.append(("locus_topk_merge dense cache kernel",
+                     "locus_topk_merge", "dense_cache_",
                      lambda: locus_merge.locus_topk_merge(tc, loci_etp, K),
-                     None))
-    host_out.append(("embedding_bag dense entry",
+                     True))
+    host_out.append(("embedding_bag dense entry kernel", None, "",
                      lambda: embedding_bag.embedding_bag_dense(bag_table,
                                                                *bag_dense),
-                     None))
-    for name, kern, library in host_out:
-        for who, fn in (("kernel", kern), ("library", library)):
-            if fn is None:
-                continue
-            g_ms, why = graph_ms(fn, 20)
-            h_us = host_us(fn, 1000)
-            b2b = cuda_ms(fn, 20)
-            log(f"time {name} {who}: {b2b:.4f} ms back to back, "
-                + (f"{g_ms:.4f} ms in a CUDA graph" if why is None
-                   else f"not measured in a CUDA graph ({why})")
-                + f", host {h_us:.2f} us a call")
-            # the dense-cache merge is kept in the merge's row
-            dense = name.endswith(" dense cache")
-            row_name = name.removesuffix(" dense cache")
-            row = next((r for r in rows if r["name"] == row_name), None)
-            if row is not None:
-                pre = ("" if who == "kernel" else "library_") + (
-                    "dense_cache_" if dense else "")
-                if dense:
-                    row[pre + "ms"] = b2b
-                row[pre + "graph_ms"] = g_ms
-                row[pre + "host_us"] = h_us
+                     False))
+    for label, row_name, pre, fn, keep_b2b in host_out:
+        g_ms, why = graph_ms(fn, 20)
+        h_us = host_us(fn, 1000)
+        b2b = cuda_ms(fn, 20)
+        log(f"time {label}: {b2b:.4f} ms back to back, "
+            + (f"{g_ms:.4f} ms in a CUDA graph" if why is None
+               else f"not measured in a CUDA graph ({why})")
+            + f", host {h_us:.2f} us a call")
+        row = next((r for r in rows if r["name"] == row_name), None)
+        if row is not None:
+            if keep_b2b:
+                row[pre + "ms"] = b2b
+            row[pre + "graph_ms"] = g_ms
+            row[pre + "host_us"] = h_us
+    # the rule-free walk_batch's device work, by the profiler: kernels a
+    # call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            cuda_sub.walk_batch(tp, usps_plain.cfg, q_plain, ql_plain)
+        torch.cuda.synchronize()
+    by_kernel = device_kernels(prof)
+    log("profile rule-free walk_batch (10 calls): " + (
+        ", ".join(f"{k} {n}x {t:.2f} us" for k, (n, t) in by_kernel.items())
+        if by_kernel else "not measured (no device events)"))
+    if by_kernel and (set(by_kernel) != {"trie_walk_kernel"}
+                      or by_kernel["trie_walk_kernel"][0] != 10):
+        raise AssertionError("the rule-free walk_batch should be one "
+                             f"trie_walk_kernel launch a call: {by_kernel}")
+    # one batch of each USPS plain path under the profiler: the device's
+    # busy share of the batch window, and device time by kernel name
+    plain_batch = make_workload(usps_small, 512, seed=1)[:B]
+    for name, idx in (("USPS plain", usps_plain),
+                      ("USPS plain cache_k=16", usps_plain_c)):
+        service = rt.CompletionService(idx)
+        service.complete(plain_batch, k=K)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(BATCH_WINDOW):
+                service.complete(plain_batch, k=K)
+        log(f"profile {name}, one batch of {B}: {batch_trace(prof)}")
     for e in (1, 2):
         for name, tt, cfg in (("locus_dp", t_et, cfg_et),
                               ("locus_dp_packed", t_etp, cfg_etp)):

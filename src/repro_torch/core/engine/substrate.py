@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.core.engine import beam, cached, locus
 from repro_torch.core.engine import packed as pk
-from repro_torch.core.engine.structs import DeviceTrie, EngineConfig, NEG_ONE
+from repro_torch.core.engine.structs import DeviceTrie, EngineConfig
 
 
 class TorchSubstrate:
@@ -87,14 +87,9 @@ class CudaSubstrate(TorchSubstrate):
         # always takes the locus DP (as the JAX package's pallas substrate)
         if pk.is_packed(t) or not self._rule_free(t, cfg):
             return locus_dp.locus_dp_walk(t, cfg, qs, qlens)
-        node, depth = trie_walk.trie_walk(t.first_child, t.edge_char,
-                                          t.edge_child, qs, qlens)
-        B = int(qs.shape[0])
-        hit = depth == qlens    # partial walks have no completions
-        loci = torch.full((B, cfg.frontier), NEG_ONE, dtype=torch.int32,
-                          device=qs.device)
-        loci[:, 0] = torch.where(hit, node, NEG_ONE)
-        return loci, torch.zeros(B, dtype=torch.int32, device=qs.device)
+        # the prefix walk and its loci epilogue, one launch
+        return trie_walk.trie_walk_loci(t.first_child, t.edge_char,
+                                        t.edge_child, qs, qlens, cfg.frontier)
 
     def beam_topk_batch(self, t, cfg, loci, k):
         from repro_torch.kernels import beam_topk
