@@ -22,10 +22,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    32, 64, 128 and 256, and with its rows forced into the device-memory
    workspace) and the beam on those loci at each retry round's widths (W
    = 48 to 3,072; 16 queries past W = 192) on USPS ET and DBLP HT; both on
-   a batch of queries of 1 and of 32 characters; the beam at every
-   round's widths on two tie-heavy USPS ET 100k corpora (every score
-   equal; scores drawn from three values); ``trie_walk``, both entries
-   ((node, depth) and the loci of the rule-free phase 1), on USPS plain
+   a batch of queries of 1 and of 32 characters; the beam at the first
+   three rounds' widths (W = 48 to 768) on two tie-heavy USPS ET 100k
+   corpora (every score equal; scores drawn from three values);
+   ``trie_walk``, both entries ((node, depth) and the loci of the
+   rule-free phase 1), on USPS plain
    100k's CSR, DBLP's dictionary CSR, a random byte-string corpus (root
    row 255, deeper rows wider than 32) and an empty edge table, at L = 8,
    32 and 64 and B = 1, 63, 64, 65 and 1,024, the loci also against the
@@ -70,7 +71,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and each packed index's answers must equal the dense index's of the
    same cache depth and edit budget (node ids are shared, so the layouts
    agree bit for bit);
-5. time each kernel against its plain version, its bound and (where one
+5. typing sessions, save and load, multi-term completion: the first 48
+   queries of the batch workload typed one byte at a time through
+   ``CompletionService.open_session(k=10)`` (one warm-up query, a
+   ``reset`` between queries) on USPS ET 1M with ``cache_k=16`` (dense and
+   packed: ``locus_topk_merge`` at B=1), without a cache (the beam at
+   B=1), at ``edit_budget=1``, and on USPS plain 100k with ``cache_k=16``
+   (``topk_select`` at B=1): every keystroke of the first 32 equal to
+   ``complete`` on its prefix and to the ``"torch"`` substrate's session,
+   the phase-2 kernel launched, no plain version run, ms per keystroke
+   (p50, p99), keystrokes per second and the hit rate; for one keystroke
+   of each, no host sync in init and advance (CUDA's sync debug mode), the
+   advance's CUDA kernels and the keystroke's device busy share and
+   phase-2 time (profiler), and so for one keystroke on DBLP TT (the
+   link store's rule steps); USPS ET 1M packed with ``cache_k=16`` and
+   USPS plain 100k saved and loaded back onto the card (seconds, bytes),
+   their answers on the batch workload equal to the originals' with the
+   same kernels launching; ``kind="multiterm"`` on the JAX package's
+   example (its expected answers, dense and packed) and on DBLP cut to
+   1,000 strings, dense and packed (batch against the torch substrate,
+   sessions against ``complete`` and, dense, 2 of them against the torch
+   substrate's session, packed against dense; ``locus_dp`` launching);
+6. time each kernel against its plain version, its bound and (where one
    exists) a PyTorch library call at the main path's shapes (the locus DP
    also at E = 1 and 2, and the locus DP and the beam at every width the
    main path launched them, with their launches counted per width in
@@ -83,10 +105,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    synchronise), ``locus_topk_merge`` so also on the dense cache with the
    packed run's loci (the gap is the rank lookups' cost); ``trie_walk``
    so too, with its loci entry and the rule-free ``walk_batch`` it
-   serves (which the profiler must show as one kernel a call); a
-   ``torch.profiler`` trace of one batch of each USPS plain path (the
-   device's busy share of the batch window, device time by kernel); print
-   one JSON line of kernels, the card, and, last, the device line.
+   serves; print one JSON line of kernels (their launches summed over
+   phases 4 and 5), the card, and, last, the device line.  The profiler's
+   traces of phase 4's paths run at the end of phase 4, ahead of phase
+   5's: ``candidate_topk``'s two kernels apart, the rule-free
+   ``walk_batch`` (which must be one kernel a call) and one batch of each
+   USPS plain path (the device's busy share of the batch window, device
+   time by kernel).
 
 ``--small`` runs every phase on small corpora (a quick compile-and-check).
 Without a CUDA device the script exits non-zero and prints no result.
@@ -99,7 +124,9 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -122,6 +149,35 @@ RETRY = dict(frontier=64, gens=192, max_steps=2048)     # first retry round
 WIDEST = dict(frontier=256, gens=3072, max_steps=32768)  # third retry round
 TIE_SCORES = ("equal", "three")   # every score 7; scores from {5, 9, 13}
 PAPER_B_PER_STRING = (160, 200)   # the paper's space claim
+# typing sessions: queries typed per path, and of those held keystroke by
+# keystroke against complete and the torch substrate's session; on the
+# path without a cache, the torch session's plain beam (~0.17 s a
+# keystroke on an H100 host) holds fewer
+SESSION_QUERIES = (32, 32)
+SESSION_QUERIES_TORCH_BEAM = 8
+# the multi-term build's corpus, cut from DBLP's 24,810 strings: its
+# synthesized rules grow fast with the corpus
+N_DBLP_MULTITERM = 1_000
+#: the phase-2 kernels, as the profiler names them, by launch counter
+PHASE2_KERNELS = {"beam_topk": ("beam_topk_kernel",),
+                  "beam_topk_packed": ("beam_topk_kernel",),
+                  "locus_topk_merge": ("merge_warp", "merge_block"),
+                  "topk_select": ("topk_select_warp", "topk_select_block")}
+# the JAX package's multi-term example (tests/test_modes.py): the last
+# token completes after up to multiterm_gap skipped tokens
+MT_STRINGS = [b"the new york times", b"new york", b"san francisco giants",
+              b"the giants", b"new jersey", b"times square"]
+MT_SCORES = [60, 50, 40, 30, 20, 10]
+MT_EXPECT = {
+    b"the t": [(60, "the new york times")],
+    b"the times": [(60, "the new york times")],
+    b"the york t": [(60, "the new york times")],
+    b"new y": [(50, "new york")],
+    b"san g": [(40, "san francisco giants")],
+    b"the g": [(30, "the giants")],
+    b"t": [(60, "the new york times"), (30, "the giants"),
+           (10, "times square")],
+}
 
 
 def round_widths(cfg, r: int) -> dict:
@@ -303,43 +359,61 @@ def kernel_name(name: str) -> str:
     return name.split("::")[-1].strip()
 
 
-#: the profiler annotation around a traced batch
+#: the profiler annotations around a traced batch or keystroke, and
+#: around a keystroke's advance alone
 BATCH_WINDOW = "chip_smoke batch"
+ADVANCE_WINDOW = "chip_smoke advance"
 
 
-def device_events(prof) -> list:
+def device_events(prof, window: str | None = None) -> list:
     """A profile's device events: kernels and copies, not the device-side
-    span of an annotation."""
+    span of an annotation; with ``window``, those that start inside that
+    annotation's span on the host."""
     from torch.autograd import DeviceType
 
-    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-            and not getattr(ev, "is_user_annotation", False)
-            and ev.name != BATCH_WINDOW]
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+           and not getattr(ev, "is_user_annotation", False)
+           and ev.name not in (BATCH_WINDOW, ADVANCE_WINDOW)]
+    if window is None:
+        return evs
+    span = next(((ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events() if ev.name == window
+                 and ev.device_type == DeviceType.CPU), None)
+    if span is None:
+        return []
+    return [ev for ev in evs if span[0] <= ev.time_range.start <= span[1]]
 
 
-def device_kernels(prof) -> dict:
-    """Device events of a profile by kernel name: (count, total us)."""
+def device_kernels(prof, window: str | None = None) -> dict:
+    """Device events of a profile (of one annotation's span, with
+    ``window``) by kernel name: (count, total us)."""
     out = {}
-    for ev in device_events(prof):
+    for ev in device_events(prof, window):
         n, t = out.get(kernel_name(ev.name), (0, 0.0))
         out[kernel_name(ev.name)] = (
             n + 1, t + ev.time_range.end - ev.time_range.start)
     return out
 
 
-def batch_trace(prof) -> str:
+def batch_trace(prof, label: str, must=()) -> str:
     """The device's busy share of the ``BATCH_WINDOW`` span of a profile
     (the union of its device events' spans over the window's length) and
-    device time by kernel name; "not measured" where the profile holds no
-    device event."""
+    device time by kernel name. Raises where the window holds no device
+    event, or none of a kernel named in ``must``."""
     from torch.autograd import DeviceType
 
     window = [ev for ev in prof.events() if ev.name == BATCH_WINDOW
               and ev.device_type == DeviceType.CPU]
     spans = sorted((ev.time_range.start, ev.time_range.end)
                    for ev in device_events(prof))
-    if not window or not spans:
-        return "not measured (no device events)"
+    in_window = device_kernels(prof, BATCH_WINDOW)
+    if not window or not spans or not in_window:
+        raise AssertionError(f"profile {label}: no device events in the "
+                             "trace")
+    missing = [k for k in must if k not in in_window]
+    if missing:
+        raise AssertionError(f"profile {label}: no {missing} in the trace: "
+                             f"{sorted(in_window)}")
     w0, w1 = window[0].time_range.start, window[0].time_range.end
     busy, reached = 0.0, w0
     for s, e in spans:
@@ -349,8 +423,8 @@ def batch_trace(prof) -> str:
             reached = e
     return (f"window {w1 - w0:.1f} us, device busy {busy:.1f} us "
             f"({100 * busy / (w1 - w0):.1f} %), by kernel: "
-            + ", ".join(f"{k} {n}x {t:.2f} us"
-                        for k, (n, t) in device_kernels(prof).items()))
+            + ", ".join(f"{k} {n}x {t:.2f} us" for k, (n, t) in
+                        in_window.items()))
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -379,7 +453,10 @@ def main() -> int:
         return 2
     from dataclasses import replace
 
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     import repro_torch as rt
+    from repro_torch.api.build import derived_stats
     from repro_torch.core import trie_build as tb
     from repro_torch.core.alphabet import pad_queries
     from repro_torch.core.engine import beam, cached, locus
@@ -453,7 +530,8 @@ def main() -> int:
         out = rt.CompletionIndex.from_parts(
             trie, idx.rule_trie, idx.rules, idx.strings, idx.scores, cfg,
             device=dev, spec=idx.spec.replace(cache_k=cache_k,
-                                              compression=compression))
+                                              compression=compression),
+            stats=derived_stats(idx.stats, trie, idx.rule_trie))
         torch.cuda.synchronize()
         builds[name] = time.perf_counter() - t
         n = len(out.strings)
@@ -551,6 +629,7 @@ def main() -> int:
                 raise AssertionError(f"{layout} {label}: packed and dense "
                                      "loci differ")
     log("  dense and packed loci equal on DBLP TT, DBLP HT and USPS ET")
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the prefix walk")
     # the prefix walk, both entries: on USPS plain 100k's CSR, DBLP's
     # dictionary CSR (the DBLP TT index's), a corpus of random byte strings
     # whose root row is 255 wide and whose second rows are wider than 32
@@ -608,6 +687,7 @@ def main() -> int:
         want = beam_topk.beam_topk_plain(idx.tensors, cfg, loci, K)
         check_equal(kern, f"{name} {label} W={cfg.gens} exact="
                     f"{int(got[2].sum())}/{B}", got, want)
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the widest retry round")
     # the widest retry round the default spec can reach, on a few queries
     q, ql = batch(usps, seed=2)
     for name, idx in (("USPS ET", usps_et), ("USPS ET packed", usps_et_p)):
@@ -619,6 +699,7 @@ def main() -> int:
         got_b = beam_topk.beam_topk_batch(idx.tensors, cfg, got[0], K)
         check_equal("beam_topk" + sfx, f"{name} widest W=3072", got_b,
                     beam_topk.beam_topk_plain(idx.tensors, cfg, got[0], K))
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the edit transitions")
     # the edit transitions: E = 1 and 2, both accessors, four corpora, the
     # default frontier and the widened retry's
     edit_loci = {}
@@ -650,6 +731,7 @@ def main() -> int:
             raise AssertionError(f"{name} E={e} F={f}: packed and dense "
                                  "loci differ")
     log("  dense and packed loci and overflow equal at E = 0, 1 and 2")
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the beam at every width")
     # the beam on those loci at each retry round's widths (F = 32-256 with
     # W = 48-3,072), E = 0-2, both accessors, on USPS ET and DBLP HT
     for name, idx in (("USPS ET", usps_et), ("DBLP HT", dblp_ht),
@@ -669,6 +751,7 @@ def main() -> int:
                 check_equal(kern, f"{name} E={e} W={cfg.gens} "
                             f"max_steps={cfg.max_steps} on {n_q} queries "
                             f"exact={int(got[2].sum())}/{n_q}", got, want)
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the forced workspace")
     # the device-memory workspace, forced: candidate rows, then the
     # frontier too
     saved_max = _build.MAX_SHARED_BYTES
@@ -691,6 +774,7 @@ def main() -> int:
                         "block)", got,
                         locus_dp.locus_dp_plain(idx.tensors, cfg, q, ql))
 
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: short and long queries")
     # queries of one character, of a full L_BUCKET characters, and mixed
     # (a dictionary string typed on past its end, to fill the bucket)
     work = make_workload(usps, B, seed=3)
@@ -717,6 +801,7 @@ def main() -> int:
                         f"{L_BUCKET} and mixed", got_b,
                         beam_topk.beam_topk_plain(idx.tensors, cfg, got[0],
                                                   K))
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: tie-heavy corpora")
     # tie-heavy corpora, where the pool order decides which generator is
     # popped: the beam at every round's widths, both accessors
     for tie in TIE_SCORES:
@@ -744,6 +829,7 @@ def main() -> int:
                                      "differ")
     log("  tie-heavy corpora: packed and dense beams equal at every width")
 
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the cached merge")
     # the cached merge at every width of the warp path (F*K = 16 to 1,024
     # at K=16: 1 to 32 keys a lane) and on the block path (F = 65, 128),
     # k = 1, k < K, K, F*K and past it, on both layouts of USPS ET 1M
@@ -784,6 +870,7 @@ def main() -> int:
             check_equal("locus_topk_merge", f"{name} cache tiers {tiers} "
                         f"k={k}", got,
                         locus_merge.locus_merge_plain(idx.tensors, lo, k))
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: topk_select")
     # topk_select at the rule-free cached route's shape, then at every
     # width of the warp path (1 to 32 keys a lane) and on the block path
     # (C = 1,025 and 2,048), on rows of ties, of one score, and of
@@ -813,6 +900,7 @@ def main() -> int:
                             f"a lane, {threads} threads) k={k}", got,
                             topk_select.topk_select_plain(sc, pay, k))
 
+    log(f"  phase 3 at {time.perf_counter() - t_start:.1f} s: the off-path kernels")
     # the off-path kernels, on inputs made on the card from a seed
     gen = torch.Generator(device=dev).manual_seed(0)
     n_cand = 20_000 if args.small else CAND_N
@@ -1013,16 +1101,18 @@ def main() -> int:
             raise AssertionError(f"{name}: a plain version ran on the main "
                                  "path")
         held = queries[:n_check]
-        idx.reconfigure(substrate="torch")
-        want = [r for i in range(0, len(held), B)
-                for r in idx.complete(held[i:i + B], k=K)]
-        idx.reconfigure(substrate="cuda")
-        if results[:len(held)] != want:
-            bad = [i for i, (a, b) in enumerate(zip(results, want)) if a != b]
-            raise AssertionError(f"{name}: cuda and torch substrates differ "
-                                 f"on queries {bad[:5]}")
-        log(f"  {name}: cuda answers equal the torch substrate's "
-            f"({len(held)} queries)")
+        if held:
+            idx.reconfigure(substrate="torch")
+            want = [r for i in range(0, len(held), B)
+                    for r in idx.complete(held[i:i + B], k=K)]
+            idx.reconfigure(substrate="cuda")
+            if results[:len(held)] != want:
+                bad = [i for i, (a, b) in enumerate(zip(results, want))
+                       if a != b]
+                raise AssertionError(f"{name}: cuda and torch substrates "
+                                     f"differ on queries {bad[:5]}")
+            log(f"  {name}: cuda answers equal the torch substrate's "
+                f"({len(held)} queries)")
         answers[name] = results
         return c
 
@@ -1037,13 +1127,21 @@ def main() -> int:
     if usps_et.substrate != "cuda":
         raise AssertionError(f"auto resolved to {usps_et.substrate} on CUDA")
     launched = {}
-    width_launched = {}   # the launches of `launched` by width
+    # the launches of phase 4's batches of B, by width: phase 6 times
+    # each width at that shape on USPS ET 1M's first batch (phase 5's B=1
+    # keystrokes and its other indexes' batches count in `launched` alone;
+    # their device times are the profiler's, in phase 5's lines)
+    width_launched = {}
+    batch_launched = {}
 
-    def record(c, *names):
+    def record(c, *names, by_width=True):
         for k_name in names:
             launched[k_name] = launched.get(k_name, 0) + c[k_name]
+            if by_width:
+                batch_launched[k_name] = (batch_launched.get(k_name, 0)
+                                          + c[k_name])
         for key, n in c.get("widths", {}).items():
-            if key[0] in names:
+            if by_width and key[0] in names:
                 width_launched[key] = width_launched.get(key, 0) + n
 
     record(main_path("USPS ET", usps_et, usps, ("locus_dp", "beam_topk")),
@@ -1143,10 +1241,315 @@ def main() -> int:
                 raise AssertionError(f"Figure 1 typos, {kind} {opt}: {got}")
     log("Figure 1 typos at edit_budget=1: tt/et/ht answers as expected")
 
-    # -- phase 5: kernel times and bounds at the main path's shapes ---------------
-    log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
-    q, ql = batch(usps, seed=1)
+    # the profiler's traces of the paths above, taken ahead of phase 5's
+    # many keystroke traces: taken after them, traces in the same process
+    # have come back empty or partial on an H100 (cause not known), and an
+    # empty or partial trace fails the run
     q_plain, ql_plain = batch(usps_small, seed=1)
+    cuda_sub = get_substrate("cuda")
+    # candidate_topk's two kernels apart, by the profiler
+    for q_t, c_t in ((cand_q, cands), (cand_q_bf16, cands_bf16)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                candidate_topk.candidate_topk(q_t, c_t, CAND_K)
+            torch.cuda.synchronize()
+        got = {k: v for k, v in device_kernels(prof).items()
+               if k.startswith("candidate_")}
+        if {k: n for k, (n, _) in got.items()} != {
+                "candidate_score_select": 10, "candidate_merge": 10}:
+            raise AssertionError("profile candidate_topk: two kernels a "
+                                 f"call, 10 calls, expected: {got}")
+        log(f"profile candidate_topk {str(c_t.dtype)[6:]} (us a call, 10 "
+            "calls): " + ", ".join(f"{k} {t / 10:.2f}"
+                                   for k, (_, t) in got.items()))
+    # the rule-free walk_batch's device work, by the profiler: kernels a
+    # call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            cuda_sub.walk_batch(tp, usps_plain.cfg, q_plain, ql_plain)
+        torch.cuda.synchronize()
+    by_kernel = device_kernels(prof)
+    log("profile rule-free walk_batch (10 calls): " + ", ".join(
+        f"{k} {n}x {t:.2f} us" for k, (n, t) in by_kernel.items()))
+    if (set(by_kernel) != {"trie_walk_kernel"}
+            or by_kernel["trie_walk_kernel"][0] != 10):
+        raise AssertionError("the rule-free walk_batch should be one "
+                             f"trie_walk_kernel launch a call: {by_kernel}")
+    # one batch of each USPS plain path under the profiler: the device's
+    # busy share of the batch window, and device time by kernel name
+    plain_batch = make_workload(usps_small, 512, seed=1)[:B]
+    for name, idx, must in (
+            ("USPS plain", usps_plain, ("trie_walk_kernel",
+                                        "beam_topk_kernel")),
+            ("USPS plain cache_k=16", usps_plain_c,
+             ("trie_walk_kernel", "topk_select_warp"))):
+        service = rt.CompletionService(idx)
+        service.complete(plain_batch, k=K)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(BATCH_WINDOW):
+                service.complete(plain_batch, k=K)
+        log(f"profile {name}, one batch of {B}: "
+            f"{batch_trace(prof, name, must)}")
+
+    # -- phase 5: typing sessions, save and load, multi-term completion ---------
+    log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
+    n_typed, n_typed_check = (16, 16) if args.small else SESSION_QUERIES
+    n_torch_beam = min(n_typed_check, SESSION_QUERIES_TORCH_BEAM)
+
+    def typed(service, queries):
+        """Type each query one byte at a time through one ServiceSession,
+        reset between queries: the answer after every keystroke."""
+        sess = service.open_session(k=K)
+        out = []
+        for q in queries:
+            sess.reset()
+            qb = q.encode()
+            out.append([sess.type(qb[i:i + 1]) for i in range(len(qb))])
+        sess.close()
+        return out
+
+    typed_answers = {}
+
+    def session_path(name, idx, ds, must_launch, n_queries, n_check,
+                     n_torch=None):
+        """``serve_keystroke``'s workload on ``idx``: the first
+        ``n_queries`` of the batch workload typed through the service
+        after one warm-up query; every keystroke of the first ``n_check``
+        held against ``complete`` on its prefix, and of the first
+        ``n_torch`` (``n_check`` by default) against the torch
+        substrate's session; one keystroke profiled."""
+        queries = make_workload(ds, 512, seed=1)[:n_queries]
+        service = rt.CompletionService(idx)
+        typed(service, queries[:1])                  # warm-up
+        service.stats.reset_keystrokes()
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        got = typed(service, queries)
+        wall = time.perf_counter() - t
+        c = counts()
+        st = service.stats
+        keys = [r for q in got for r in q]
+        hits = sum(1 for r in keys if r) / len(keys)
+        log(f"session {name}: {len(queries)} queries, {st.n_keystrokes} "
+            f"keystrokes, k={K}: {st.mean_keystroke_ms:.3f} ms a keystroke "
+            f"(p50 {st.p50_keystroke_ms():.3f}, p99 "
+            f"{st.p99_keystroke_ms():.3f}), {st.n_keystrokes / st.keystroke_seconds:.1f} "
+            f"keystrokes/s ({wall:.2f} s wall), hit rate {hits:.4f}, "
+            f"launches { {k: v for k, v in c.items() if k != 'widths'} }, "
+            "by width " + ", ".join(
+                f"{k[0]} E={k[1]} {'F' if 'locus' in k[0] else 'W'}={k[2]}: "
+                f"{v}" for k, v in sorted(c["widths"].items())))
+        if st.n_keystrokes != len(keys):
+            raise AssertionError(f"session {name}: {st.n_keystrokes} "
+                                 f"keystrokes counted, {len(keys)} typed")
+        for k_name in must_launch:
+            if c[k_name] <= 0:
+                raise AssertionError(f"session {name}: {k_name} never "
+                                     "launched")
+        if c["plain"]:
+            raise AssertionError(f"session {name}: a plain version ran")
+        t = time.perf_counter()
+        for qi, q in enumerate(queries[:n_check]):
+            qb = q.encode()
+            want = idx.complete([qb[:i + 1] for i in range(len(qb))], k=K)
+            if got[qi] != want:
+                bad = next(i for i, (a, b) in enumerate(zip(got[qi], want))
+                           if a != b)
+                raise AssertionError(f"session {name}: query {qi} differs "
+                                     f"from complete at keystroke {bad}")
+        t_complete = time.perf_counter() - t
+        n_torch = n_check if n_torch is None else n_torch
+        t = time.perf_counter()
+        idx.reconfigure(substrate="torch")
+        want = typed(rt.CompletionService(idx), queries[:n_torch])
+        idx.reconfigure(substrate="cuda")
+        if got[:n_torch] != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"session {name}: cuda and torch sessions "
+                                 f"differ on queries {bad[:5]}")
+        t_torch = time.perf_counter() - t
+        t = time.perf_counter()
+        session_trace(name, idx, queries[0].encode(), must_launch[-1])
+        log(f"  {name}: every keystroke of {n_check} queries equals complete "
+            f"on its prefix ({t_complete:.1f} s), of {n_torch} the torch "
+            f"substrate's session ({t_torch:.1f} s); trace "
+            f"{time.perf_counter() - t:.1f} s")
+        typed_answers[name] = got
+        return c
+
+    def session_trace(name, idx, qb, phase2_counter):
+        """One keystroke in the middle of ``qb``: no host sync in init and
+        advance (CUDA's sync debug mode), the advance's kernels (profiler),
+        and the whole keystroke's device busy share and the time of its
+        phase-2 kernel (that of ``phase2_counter``); raises where the
+        trace lacks either."""
+        sess = idx.session(k=K)
+        mid = len(qb) // 2
+        sess.type(qb[:mid])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = sess._init()
+                for b in qb:
+                    st = sess._advance(st, b)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        if syncs:
+            raise AssertionError(f"session {name}: init/advance synchronised "
+                                 f"{len(syncs)} times: {syncs[0].message}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(ADVANCE_WINDOW):
+                sess._advance(sess._states[-1], qb[mid])
+                torch.cuda.synchronize()
+            with record_function(BATCH_WINDOW):
+                sess.type(qb[mid:mid + 1])
+        adv = device_kernels(prof, ADVANCE_WINDOW)
+        n_adv = sum(n for n, _ in adv.values())
+        if not adv:
+            raise AssertionError(f"profile {name}: no device events in the "
+                                 "advance's trace")
+        label = f"{name}, keystroke {mid + 1} of {qb!r}"
+        keystroke = batch_trace(prof, label)
+        phase2 = {k: v for k, v in device_kernels(prof, BATCH_WINDOW).items()
+                  if k in PHASE2_KERNELS[phase2_counter]}
+        if not phase2:
+            raise AssertionError(f"profile {label}: no "
+                                 f"{PHASE2_KERNELS[phase2_counter]} in the "
+                                 "trace")
+        log(f"  profile {label}: advance {n_adv} CUDA kernels "
+            f"({sum(t for _, t in adv.values()):.1f} us device), most: "
+            + ", ".join(f"{k} {n}x" for k, (n, _) in sorted(
+                adv.items(), key=lambda x: -x[1][0])[:6])
+            + f"; the keystroke: {keystroke}; phase 2: "
+            + ", ".join(f"{k} {n}x {t:.2f} us" for k, (n, t) in
+                        phase2.items())
+            + f"; no host sync in init/advance ({len(qb)} advances)")
+
+    def record_all(c):
+        # every kernel the path launched (an inexact keystroke's answer
+        # comes from complete, whose walk and retry launch too)
+        record(c, *[k_name for k_name in counters if c[k_name] > 0],
+               by_width=False)
+
+    # (a) typing sessions on the built indexes, B=1 a keystroke
+    for name, idx, ds, phase2 in (
+            ("USPS ET cache_k=16", usps_et_c, usps, "locus_topk_merge"),
+            ("USPS ET", usps_et, usps, "beam_topk"),
+            ("USPS ET packed cache_k=16", usps_et_pc, usps,
+             "locus_topk_merge"),
+            ("USPS plain cache_k=16", usps_plain_c, usps_small,
+             "topk_select")):
+        record_all(session_path(
+            name, idx, ds, (phase2,), n_typed, n_typed_check,
+            n_torch=n_torch_beam if phase2 == "beam_topk" else None))
+    usps_et_c.reconfigure(edit_budget=1)
+    record_all(session_path("USPS ET cache_k=16 E=1", usps_et_c, usps,
+                            ("locus_topk_merge",), n_typed, n_typed_check))
+    usps_et_c.reconfigure(edit_budget=0)
+    # a rule-bearing trie (the link store: the advance's loop over the
+    # lhs history and each rule-trie node's rules), one keystroke traced
+    session_trace("DBLP TT", dblp_tt,
+                  make_workload(dblp, 512, seed=1)[0].encode(), "beam_topk")
+    log(f"sessions done at {time.perf_counter() - t_start:.1f} s")
+
+    # (b) save and load: the container round trip onto the card, answers
+    # held against the original index's
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, idx, ds, must in (
+                ("USPS ET packed cache_k=16", usps_et_pc, usps,
+                 ("locus_dp_packed", "locus_topk_merge")),
+                ("USPS plain", usps_plain, usps_small,
+                 ("trie_walk_loci", "beam_topk"))):
+            path = str(Path(tmp) / "index.npz")
+            t = time.perf_counter()
+            idx.save(path)
+            save_s = time.perf_counter() - t
+            size = Path(path).stat().st_size
+            t = time.perf_counter()
+            loaded = rt.CompletionIndex.load(path, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            log(f"save/load {name}: save {save_s:.3f} s, container {size} B "
+                f"({size / len(idx.strings):.1f} B/string), load onto the "
+                f"card {load_s:.3f} s, {device_bytes(loaded)} B on the card "
+                f"(the original {device_bytes(idx)} B), epoch {loaded.epoch}, "
+                f"substrate {loaded.substrate}; loaded index's batch answers "
+                "held against the original's below")
+            if loaded.substrate != "cuda" or \
+                    device_bytes(loaded) != device_bytes(idx):
+                raise AssertionError(f"save/load {name}: the loaded index "
+                                     "differs from the original")
+            record_all(main_path(f"{name} loaded", loaded, ds, must,
+                                 n_check=0))
+            same_answers(f"{name} loaded", name)
+            del loaded
+            Path(path).unlink()
+
+    log(f"save/load done at {time.perf_counter() - t_start:.1f} s")
+
+    # (c) multi-term completion: the JAX package's own example, then DBLP
+    mt_spec = dict(kind="multiterm", frontier=32, gens=32, expand=4,
+                   max_steps=128, multiterm_gap=2)
+    for opt, walk in (({}, "locus_dp"),
+                      ({"compression": "packed"}, "locus_dp_packed")):
+        mt = rt.build_index(MT_STRINGS, MT_SCORES, [], device=dev,
+                            **mt_spec, **opt)
+        reset_counts()
+        got = mt.complete(list(MT_EXPECT), k=5)
+        got_s = [mt.session(k=5).type(q) for q in MT_EXPECT]
+        c = counts()
+        if got != list(MT_EXPECT.values()) or got_s != got:
+            raise AssertionError(f"multiterm example {opt}: {got} / {got_s}")
+        if c[walk] <= 0 or c["plain"]:
+            raise AssertionError(f"multiterm example {opt}: launches {c}")
+        record_all(c)
+    log("multiterm example (tests/test_modes.py MT_EXPECT): complete and "
+        "sessions as expected, dense and packed")
+    dblp_mt = make_dblp(300 if args.small else N_DBLP_MULTITERM, seed=0)
+    for comp, must in (("none", ("locus_dp", "beam_topk")),
+                       ("packed", ("locus_dp_packed", "beam_topk_packed"))):
+        t = time.perf_counter()
+        idx = rt.build_index(dblp_mt.strings, dblp_mt.scores,
+                             make_rules(dblp_mt.rules),
+                             rt.IndexSpec(kind="multiterm", compression=comp),
+                             device=dev)
+        torch.cuda.synchronize()
+        name = f"DBLP multiterm {comp}"
+        log(f"build {name} ({len(dblp_mt.strings)} strings, "
+            f"{len(dblp_mt.rules)} rules): {time.perf_counter() - t:.3f} s, "
+            f"{len(idx.rules) - len(dblp_mt.rules)} rules synthesized, "
+            f"{idx.stats.n_nodes} nodes, tele_width {idx.cfg.tele_width}, "
+            f"branch_width {idx.cfg.branch_width}, "
+            f"{idx.stats.bytes_per_string:.1f} B/string built, "
+            f"{device_bytes(idx)} B on the card")
+        record_all(main_path(name, idx, dblp_mt, must, n_check=64))
+        if comp == "none":
+            record_all(session_path(name, idx, dblp_mt, must[1:], 16, 16,
+                                    n_torch=2))
+        else:
+            # node ids are shared: the packed sessions answer as the dense
+            record_all(session_path(name, idx, dblp_mt, must[1:], 16, 16,
+                                    n_torch=0))
+            if typed_answers[name] != typed_answers["DBLP multiterm none"]:
+                raise AssertionError(f"{name}: sessions differ from the "
+                                     "dense layout's")
+            log(f"  {name}: every keystroke equals the dense layout's")
+        if comp == "packed":
+            same_answers(name, "DBLP multiterm none")
+        del idx
+
+    # -- phase 6: kernel times and bounds at the main path's shapes ---------------
+    log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
+    q, ql = batch(usps, seed=1)
     t_et, cfg_et = usps_et.tensors, usps_et.cfg
     t_etp, cfg_etp = usps_et_p.tensors, usps_et_p.cfg
     t_pc = usps_et_pc.tensors
@@ -1323,19 +1726,6 @@ def main() -> int:
         bag_table, *bag_dense), 20)
     log(f"time embedding_bag dense entry: {dense_ms:.4f} ms kernel, bound "
         f"{dense_bound:.6f} ms (bytes)")
-    # candidate_topk's two kernels apart, by the profiler
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    for q_t, c_t in ((cand_q, cands), (cand_q_bf16, cands_bf16)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                candidate_topk.candidate_topk(q_t, c_t, CAND_K)
-            torch.cuda.synchronize()
-        split = {k: t / 10 for k, (_, t) in device_kernels(prof).items()
-                 if k.startswith("candidate_")}
-        log(f"profile candidate_topk {str(c_t.dtype)[6:]} (us a call, 10 "
-            "calls): " + (", ".join(f"{k} {v:.2f}" for k, v in split.items())
-                          if split else "not measured (no device events)"))
     # device time with the host out, and host time per call, for the rows
     # whose back-to-back time may be the host's: (label, the row that keeps
     # the times, their keys' prefix, the call, whether the row also keeps
@@ -1350,7 +1740,6 @@ def main() -> int:
                              False))
     # the rule-free phase 1 as the substrate runs it (kernel and the loci
     # around it)
-    cuda_sub = get_substrate("cuda")
     host_out.append(("trie_walk loci entry", "trie_walk", "loci_",
                      lambda: trie_walk.trie_walk_loci(
                          tp.first_child, tp.edge_char, tp.edge_child,
@@ -1383,33 +1772,6 @@ def main() -> int:
                 row[pre + "ms"] = b2b
             row[pre + "graph_ms"] = g_ms
             row[pre + "host_us"] = h_us
-    # the rule-free walk_batch's device work, by the profiler: kernels a
-    # call
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            cuda_sub.walk_batch(tp, usps_plain.cfg, q_plain, ql_plain)
-        torch.cuda.synchronize()
-    by_kernel = device_kernels(prof)
-    log("profile rule-free walk_batch (10 calls): " + (
-        ", ".join(f"{k} {n}x {t:.2f} us" for k, (n, t) in by_kernel.items())
-        if by_kernel else "not measured (no device events)"))
-    if by_kernel and (set(by_kernel) != {"trie_walk_kernel"}
-                      or by_kernel["trie_walk_kernel"][0] != 10):
-        raise AssertionError("the rule-free walk_batch should be one "
-                             f"trie_walk_kernel launch a call: {by_kernel}")
-    # one batch of each USPS plain path under the profiler: the device's
-    # busy share of the batch window, and device time by kernel name
-    plain_batch = make_workload(usps_small, 512, seed=1)[:B]
-    for name, idx in (("USPS plain", usps_plain),
-                      ("USPS plain cache_k=16", usps_plain_c)):
-        service = rt.CompletionService(idx)
-        service.complete(plain_batch, k=K)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function(BATCH_WINDOW):
-                service.complete(plain_batch, k=K)
-        log(f"profile {name}, one batch of {B}: {batch_trace(prof)}")
     for e in (1, 2):
         for name, tt, cfg in (("locus_dp", t_et, cfg_et),
                               ("locus_dp_packed", t_etp, cfg_etp)):
@@ -1422,15 +1784,15 @@ def main() -> int:
                 f"{cfg_e.branch_width}, cand={ls.cand}, {ls.threads} "
                 f"threads, {ls.shared} B shared): {ms:.4f} ms kernel, "
                 f"{plain_ms:.4f} ms plain")
-    # locus_dp and the beam at every width the main path launched them,
-    # on the first batch of the workload at that width
+    # locus_dp and the beam at every width phase 4's batches launched
+    # them, on the first batch of the workload at that width
     for name in ("locus_dp", "beam_topk", "locus_dp_packed",
                  "beam_topk_packed"):
         n_width = sum(n for key, n in width_launched.items()
                       if key[0] == name)
-        if n_width != launched[name]:
+        if n_width != batch_launched[name]:
             raise AssertionError(f"{name}: {n_width} launches by width, "
-                                 f"{launched[name]} in all")
+                                 f"{batch_launched[name]} in phase 4")
     by_width = {}
     for (name, e, w), n in sorted(width_launched.items()):
         tt, cfg = (t_etp, cfg_etp) if "packed" in name else (t_et, cfg_et)
@@ -1469,7 +1831,7 @@ def main() -> int:
             {"E": e, "width": w, "launches": n, "ms": ms,
              "bound_ms": bound_ms, "bound_by": bound_by})
         log(f"time {name} E={e} {'F' if 'locus' in name else 'W'}={w} "
-            f"({shape}): {ms:.4f} ms kernel, {n} main-path launches, bound "
+            f"({shape}): {ms:.4f} ms kernel, {n} phase 4 launches, bound "
             f"{bound_ms:.6f} ms ({bound_by}), loss {n * (ms - bound_ms):.3f} "
             "ms")
     for row in rows:

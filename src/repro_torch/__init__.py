@@ -6,9 +6,9 @@ layout and names.  Entry points (:func:`build_index`, :func:`load_index`,
 ``device="cpu"``.
 """
 
-from repro_torch.api import (CompletionIndex, IndexSpec, build_index,
-                             load_index)
+from repro_torch.api import (CompletionIndex, IndexSpec, Session,
+                             build_index, load_index)
 from repro_torch.serving.completion_service import CompletionService
 
-__all__ = ["CompletionIndex", "CompletionService", "IndexSpec",
+__all__ = ["CompletionIndex", "CompletionService", "IndexSpec", "Session",
            "build_index", "load_index"]

@@ -1,9 +1,15 @@
 """repro_torch.api — the public completion-index surface."""
 
-from repro_torch.api.build import BuildStats, build_index
+from repro_torch.api.build import BuildStats, build_index, multiterm_rules
 from repro_torch.api.index import CompletionIndex
-from repro_torch.api.persist import load_index
-from repro_torch.api.spec import IndexSpec, registered_kinds
+from repro_torch.api.persist import load_index, save_index
+from repro_torch.api.session import Session
+from repro_torch.api.spec import (IndexSpec, get_builder, get_synthesizer,
+                                  register_builder,
+                                  register_rule_synthesizer,
+                                  registered_kinds)
 
-__all__ = ["BuildStats", "CompletionIndex", "IndexSpec", "build_index",
-           "load_index", "registered_kinds"]
+__all__ = ["BuildStats", "CompletionIndex", "IndexSpec", "Session",
+           "build_index", "get_builder", "get_synthesizer", "load_index",
+           "multiterm_rules", "register_builder",
+           "register_rule_synthesizer", "registered_kinds", "save_index"]

@@ -18,7 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.api.spec import (BuildContext, IndexSpec, get_builder,
-                                  register_builder)
+                                  get_synthesizer, register_builder,
+                                  register_rule_synthesizer)
 from repro_torch.core import knapsack as ks
 from repro_torch.core import trie_build as tb
 from repro_torch.core.engine.structs import EngineConfig, resolve_device
@@ -77,6 +78,53 @@ def _build_ht(ctx: BuildContext):
     return expand_mask, ~expand_mask
 
 
+@register_builder("multiterm")
+def _build_multiterm(ctx: BuildContext):
+    # multi-term completion = ET-style expansion of the synthesized
+    # token-skip rules (plus any user rules): every rule becomes synonym
+    # branches with teleports, so a typed space fans out to the
+    # gram-skipping targets through the ordinary teleport plane (the
+    # synthesized rules all share the one-byte lhs b" ", which in the link
+    # store would make every space position match every rule)
+    n = len(ctx.rules)
+    return np.ones(n, bool), np.zeros(n, bool)
+
+
+def multiterm_rules(strings, gap: int, existing=()) -> list[tb.SynonymRule]:
+    """Token-skip rules for multi-term completion.
+
+    For every contiguous run of 1..``gap`` interior tokens ``G`` that
+    appears between spaces in some dictionary string, emit the rule
+    ``b" " -> b" " + G + b" "``: typing a space may skip those tokens, so
+    the *last* typed token completes conditioned on an earlier-token
+    context ("the t" -> "the new york times").  Grams are deduplicated
+    corpus-wide and against ``existing`` rules (so re-building from an
+    index's saved rule list does not double up).
+    """
+    seen = {(r.lhs, r.rhs) for r in existing}
+    out: list[tb.SynonymRule] = []
+    for s in strings:
+        s = s.encode() if isinstance(s, str) else bytes(s)
+        toks = [t for t in s.split(b" ") if t]
+        # a gram must sit strictly between tokens: a space precedes it and
+        # a completable token follows it
+        for i in range(1, len(toks)):
+            for n in range(1, gap + 1):
+                if i + n > len(toks) - 1:
+                    break
+                gram = b" ".join(toks[i:i + n])
+                key = (b" ", b" " + gram + b" ")
+                if key not in seen:
+                    seen.add(key)
+                    out.append(tb.SynonymRule(*key))
+    return out
+
+
+@register_rule_synthesizer("multiterm")
+def _synthesize_multiterm(spec: IndexSpec, strings, rules):
+    return multiterm_rules(strings, spec.multiterm_gap, existing=rules)
+
+
 # ---------------------------------------------------------------------------
 # shared pipeline
 # ---------------------------------------------------------------------------
@@ -101,6 +149,9 @@ def build_index(strings, scores, rules, spec: IndexSpec | None = None, *,
 
     t0 = time.perf_counter()
     rules = list(rules)
+    synthesizer = get_synthesizer(spec.kind)
+    if synthesizer is not None:
+        rules = rules + list(synthesizer(spec, strings, rules))
     trie, ss, sc = tb.build_dict_trie(strings, scores)
     anchors, rids, targets = tb.find_links(trie, rules)
     n_rules = len(rules)
@@ -388,3 +439,14 @@ def _make_stats(spec, trie, rule_trie, n_syn, link_sel, expand_mask,
         bytes_rule_side=link_bytes + rule_trie.nbytes(),
         bytes_cache=cache_bytes,
     )
+
+
+def derived_stats(stats: BuildStats, trie, rule_trie) -> BuildStats:
+    """The BuildStats of an index whose host trie a later build step
+    changed (the top-K cache, the compressed layout) after the build that
+    gave ``stats``: the counts and seconds carry over, the byte accounting
+    is redone for ``trie``."""
+    return _make_stats(IndexSpec(kind=stats.kind), trie, rule_trie,
+                       stats.n_syn_nodes, np.ones(stats.n_links, bool),
+                       np.ones(stats.n_rules_expanded, bool),
+                       stats.n_strings, stats.build_seconds)

@@ -1,12 +1,13 @@
-"""CompletionIndex: the queryable completion index on one device.
+"""CompletionIndex: the queryable, persistable completion index on one
+device.
 
 Construction lives in :mod:`repro_torch.api.build` (driven by an
-:class:`~repro_torch.api.spec.IndexSpec`) and loading in
-:mod:`repro_torch.api.persist`; this module owns the device tensors and
-batched lookup with the exactness-retry guard.  PyTorch runs eagerly, so
-there is no compile cache; batch and query length are still bucketed to
-powers of two, as in the JAX package, so both packages run every query at
-the same shapes.
+:class:`~repro_torch.api.spec.IndexSpec`) and the container in
+:mod:`repro_torch.api.persist`; this module owns the device tensors,
+batched lookup with the exactness-retry guard, ``save``/``load`` and the
+session entry points.  PyTorch runs eagerly, so there is no compile cache;
+batch and query length are still bucketed to powers of two, as in the JAX
+package, so both packages run every query at the same shapes.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.api.build import BuildStats
 from repro_torch.api.spec import IndexSpec
+from repro_torch.core import engine as eng
 from repro_torch.core import trie_build as tb
 from repro_torch.core.alphabet import pad_queries
 from repro_torch.core.engine import packed as pk
@@ -114,7 +116,7 @@ class CompletionIndex:
 
     def __init__(self, spec: IndexSpec, trie, rule_trie, rules, strings,
                  scores, cfg: EngineConfig, stats: BuildStats | None, *,
-                 device):
+                 device, epoch: int = 0):
         self.spec = spec
         self.trie = trie
         self.rule_trie = rule_trie
@@ -128,15 +130,18 @@ class CompletionIndex:
         #: queries re-run by each widened retry round (1st, 2nd, 3rd),
         #: summed over every lookup since the index was made
         self.retried = [0, 0, 0]
-        #: bumped by every :meth:`reconfigure` that changes something
-        self.epoch = 0
+        #: bumped by every :meth:`reconfigure` that changes something;
+        #: sessions compare against it to know when to migrate
+        self.epoch = epoch
 
     @classmethod
     def from_parts(cls, trie, rule_trie, rules, strings, scores, cfg,
-                   device=None, spec: IndexSpec | None = None):
+                   device=None, spec: IndexSpec | None = None,
+                   stats: BuildStats | None = None):
         """An index from host arrays built elsewhere — the numpy
         structures of a ``repro`` build (``index.trie``,
-        ``index.rule_trie``, ``index.cfg``, ...) — on ``device``."""
+        ``index.rule_trie``, ``index.cfg``, ...) — on ``device``.  Only an
+        index given its ``stats`` can be saved."""
         from repro_torch.api.build import validate_rule_planes
         from repro_torch.api.persist import engine_config
 
@@ -153,7 +158,7 @@ class CompletionIndex:
                              compression=cfg.compression)
         validate_rule_planes(trie, rule_trie, cfg)
         return cls(spec, trie, rule_trie, list(rules), list(strings),
-                   np.asarray(scores), cfg, None, device=device)
+                   np.asarray(scores), cfg, stats, device=device)
 
     @property
     def kind(self) -> str:
@@ -163,6 +168,11 @@ class CompletionIndex:
     def substrate(self) -> str:
         """The resolved execution substrate lookups run on."""
         return self.cfg.substrate
+
+    @property
+    def compression(self) -> str:
+        """On-device layout: "none" (full-width) or "packed" (format v4)."""
+        return self.cfg.compression
 
     @property
     def memory_budget(self) -> int:
@@ -213,13 +223,84 @@ class CompletionIndex:
             stacklevel=2)
         return self.reconfigure(memory_budget=n)
 
-    # -- out-of-slice surfaces -------------------------------------------
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def build(strings, scores, rules, kind: str = "et", *,
+              alpha: float = 0.5, cache_k: int = 0,
+              frontier: int = 32, gens: int = 48, expand: int = 8,
+              max_steps: int = 512, compression: str = "none",
+              edit_budget: int = 0, multiterm_gap: int = 2,
+              device=None) -> "CompletionIndex":
+        """Keyword constructor; equivalent to ``build_index(strings,
+        scores, rules, IndexSpec(...), device=device)``."""
+        from repro_torch.api.build import build_index
+
+        spec = IndexSpec(kind=kind, alpha=alpha, cache_k=cache_k,
+                         frontier=frontier, gens=gens, expand=expand,
+                         max_steps=max_steps, compression=compression,
+                         edit_budget=edit_budget,
+                         multiterm_gap=multiterm_gap)
+        return build_index(strings, scores, rules, spec, device=device)
+
+    @staticmethod
+    def from_spec(strings, scores, rules, spec: IndexSpec,
+                  device=None) -> "CompletionIndex":
+        """``build_index(strings, scores, rules, spec, device=device)``."""
+        from repro_torch.api.build import build_index
+
+        return build_index(strings, scores, rules, spec, device=device)
+
+    # -- persistence -------------------------------------------------------
 
     def save(self, path: str) -> None:
-        raise not_ported("save")
+        """Write the versioned npz container (format 4, the JAX package's
+        names); ``CompletionIndex.load(path)`` in either package restores
+        it without re-running trie construction."""
+        from repro_torch.api.persist import save_index
+
+        save_index(self, path)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "CompletionIndex":
+        """Load a container saved by either package onto ``device`` (CUDA
+        unless the caller passes another), its ``epoch`` resumed."""
+        from repro_torch.api.persist import load_index_parts
+
+        device = resolve_device(device)
+        p = load_index_parts(path, device)
+        return cls(p["spec"], p["trie"], p["rule_trie"], p["rules"],
+                   p["strings"], p["scores"], p["cfg"], p["stats"],
+                   device=device, epoch=p["epoch"])
+
+    # -- sessions ----------------------------------------------------------
+
+    def _session_fns(self, k: int):
+        """(init, advance-one-char, topk) over this index's tensors and
+        its current config (a :class:`~repro_torch.api.session.Session`
+        refetches them when :attr:`epoch` moves)."""
+        dev, cfg = self.tensors, self.cfg
+        sub = subs.get_substrate(cfg.substrate)
+
+        def init():
+            return eng.init_locus_state(dev, cfg, sub)
+
+        def advance(state, c):
+            return eng.advance_locus_state(dev, cfg, state, c, sub)
+
+        def topk(state):
+            return eng.topk_from_loci(dev, cfg, state, k, sub)
+
+        return init, advance, topk
 
     def session(self, k: int = 10):
-        raise not_ported("sessions")
+        """Open a stateful incremental-typing session (see
+        :class:`repro_torch.api.session.Session`)."""
+        from repro_torch.api.session import Session
+
+        return Session(self, k=k)
+
+    # -- out-of-slice surfaces -------------------------------------------
 
     def insert(self, string, score: int):
         raise not_ported("mutations")

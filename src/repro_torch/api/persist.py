@@ -1,11 +1,14 @@
-"""Load a completion-index container saved by the JAX package.
+"""The versioned npz container of a completion index, shared with the JAX
+package.
 
-``load_index(path, device=None)`` reads the versioned npz container that
-``repro``'s ``CompletionIndex.save`` writes — a JSON ``__meta__`` plus
-``trie__*`` / ``rule_trie__*`` arrays, the sorted strings, scores and rules
-— into the port's host structures and :class:`EngineConfig`, and puts the
-index on the device.  This is the bridge that carries a built index across
-the two packages with its node ids intact.
+``save_index(index, path)`` writes every host array of the built
+structures (dict trie, rule trie, sorted strings, scores, rules) and a JSON
+``__meta__`` (format version, IndexSpec, epoch, EngineConfig, BuildStats,
+trie scalars) into one compressed ``.npz``: format 4, with the array names
+and metadata keys ``repro``'s ``save_index`` writes, so either package
+loads what the other saved.  ``load_index(path, device=None)`` reads such
+a container into the port's host structures and :class:`EngineConfig` and
+puts the index on the device with its node ids intact.
 
 Formats 1-4 load, with or without a per-node top-K cache.  Older
 containers have their rule planes and tile layout rebuilt here.  A format
@@ -14,7 +17,12 @@ tiers, carried over unchanged), the link store and the rule trie; a
 pre-v4 container whose spec asks for compression is packed here.
 ``branch_width`` and the plane and tile widths are recomputed from the
 structures where they are there, and come from the saved config where a
-packed container elides them.  Saving is not ported yet.
+packed container elides them.
+
+The substrate is a property of the host that loads: each package resolves
+the saved spec's substrate against its own registry, so the port writes
+its ``"torch"`` / ``"cuda"`` as ``"auto"`` (which ``repro`` resolves) and
+reads ``repro``'s ``"jnp"`` / ``"pallas"`` as ``"auto"``.
 """
 
 from __future__ import annotations
@@ -27,17 +35,84 @@ import numpy as np
 
 from repro_torch.api.spec import IndexSpec
 from repro_torch.core import trie_build as tb
-from repro_torch.core.engine.structs import EngineConfig, resolve_device
+from repro_torch.core.engine.structs import EngineConfig
 from repro_torch.core.engine.substrate import (available_substrates,
                                                resolve_substrate)
 
+FORMAT_VERSION = 4
 _SUPPORTED_VERSIONS = (1, 2, 3, 4)
 _META_KEY = "__meta__"
+
+
+def _pack_bytes(items: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    blob = np.frombuffer(b"".join(items), dtype=np.uint8)
+    offsets = np.zeros(len(items) + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in items], out=offsets[1:])
+    return blob, offsets
 
 
 def _unpack_bytes(blob: np.ndarray, offsets: np.ndarray) -> list[bytes]:
     raw = blob.tobytes()
     return [raw[offsets[i]:offsets[i + 1]] for i in range(len(offsets) - 1)]
+
+
+def save_index(index, path: str) -> None:
+    """Serialize a built CompletionIndex to ``path`` (.npz appended by numpy
+    if missing)."""
+    if index.stats is None:
+        raise ValueError(
+            "the index carries no BuildStats (from_parts without stats=); "
+            "pass stats= to from_parts to save it")
+    trie: tb.DictTrie = index.trie
+    rule_trie: tb.RuleTrie = index.rule_trie
+    arrays: dict[str, np.ndarray] = {}
+    # a packed index keeps only the compressed side tables and the link
+    # store: the container shrinks with the device footprint
+    packed_keep = (set(tb.PACKED_ONLY_FIELDS) | set(tb.PACKED_KEEP_FIELDS)
+                   if trie.has_packed else None)
+    for f in dataclasses.fields(trie):
+        v = getattr(trie, f.name)
+        if isinstance(v, np.ndarray) and \
+                (packed_keep is None or f.name in packed_keep):
+            arrays[f"trie__{f.name}"] = v
+    for f in dataclasses.fields(rule_trie):
+        v = getattr(rule_trie, f.name)
+        if isinstance(v, np.ndarray):
+            arrays[f"rule_trie__{f.name}"] = v
+    (arrays["strings__blob"], arrays["strings__offsets"]) = _pack_bytes(
+        index.strings)
+    arrays["scores"] = np.asarray(index.scores, dtype=np.int32)
+    (arrays["rules__lhs_blob"], arrays["rules__lhs_offsets"]) = _pack_bytes(
+        [r.lhs for r in index.rules])
+    (arrays["rules__rhs_blob"], arrays["rules__rhs_offsets"]) = _pack_bytes(
+        [r.rhs for r in index.rules])
+
+    spec = index.spec.to_dict()
+    if spec["substrate"] in available_substrates():
+        spec["substrate"] = "auto"
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "spec": spec,
+        # a restarting service resumes epoch numbering
+        "epoch": index.epoch,
+        "cfg": dataclasses.asdict(index.cfg),
+        "stats": dataclasses.asdict(index.stats),
+        "trie_scalars": {"max_depth": trie.max_depth,
+                         "max_syn_targets": trie.max_syn_targets,
+                         "walk_tile": trie.walk_tile,
+                         "emit_tile": trie.emit_tile,
+                         "link_tile": trie.link_tile,
+                         "has_cache": trie.topk_score is not None
+                         or trie.pc_score is not None},
+        "rule_trie_scalars": {
+            "max_lhs_len": rule_trie.max_lhs_len,
+            "max_matches_per_pos": rule_trie.max_matches_per_pos,
+            "max_terms_per_node": rule_trie.max_terms_per_node,
+        },
+    }
+    arrays[_META_KEY] = np.frombuffer(
+        json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez_compressed(path, **arrays)
 
 
 def engine_config(cfg, trie: tb.DictTrie, rule_trie: tb.RuleTrie,
@@ -142,16 +217,13 @@ def load_index_parts(path: str, device) -> dict:
         "cfg": cfg,
         "stats": BuildStats(**{k: v for k, v in meta["stats"].items()
                                if k in known}),
+        "epoch": int(meta.get("epoch", 0)),   # pre-mutation containers: 0
     }
 
 
 def load_index(path: str, device=None):
-    """Load a container saved by ``repro``'s ``CompletionIndex.save`` onto
-    ``device`` (CUDA unless the caller passes another)."""
+    """Load a container saved by either package onto ``device`` (CUDA
+    unless the caller passes another)."""
     from repro_torch.api.index import CompletionIndex
 
-    device = resolve_device(device)
-    p = load_index_parts(path, device)
-    return CompletionIndex(p["spec"], p["trie"], p["rule_trie"], p["rules"],
-                           p["strings"], p["scores"], p["cfg"], p["stats"],
-                           device=device)
+    return CompletionIndex.load(path, device=device)

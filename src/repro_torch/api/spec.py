@@ -1,10 +1,12 @@
 """Declarative index specification + pluggable builder registry.
 
 An :class:`IndexSpec` captures *what* index to build (kind, HT space budget,
-cache depth, on-device layout) and the static engine widths.  The per-kind rule-partitioning
-policies (``tt`` / ``et`` / ``ht`` / ``plain``) register themselves in a
-builder registry (:mod:`repro_torch.api.build`).  Options the port does
-not run yet raise ``NotImplementedError`` naming their ROADMAP item.
+cache depth, on-device layout) and the static engine widths.  The per-kind
+rule-partitioning policies (``tt`` / ``et`` / ``ht`` / ``plain`` /
+``multiterm``) register themselves in a builder registry, and a kind that
+derives rules from the corpus registers a rule synthesizer beside it
+(:mod:`repro_torch.api.build`).  Options the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ from repro_torch.not_ported import not_ported
 class IndexSpec:
     """Everything needed to (re)build a completion index, minus the data.
 
-    kind: "tt" (twin tries), "et" (expansion trie), "ht" (hybrid), or
-        "plain" (prefix-only, no synonym support).
+    kind: "tt" (twin tries), "et" (expansion trie), "ht" (hybrid),
+        "plain" (prefix-only, no synonym support) or "multiterm" (the last
+        typed token completes after up to ``multiterm_gap`` skipped
+        tokens).
     alpha: HT space ratio in [0, 1] (paper Fig. 8); ignored by other kinds.
     cache_k: materialize per-node top-K lists (0 = off; phase 2 then
         merges them when k <= cache_k).
@@ -45,9 +49,8 @@ class IndexSpec:
         single-character edits (substitute, insert, delete) on the
         dictionary side of a match, 0-2; a runtime knob
         (``CompletionIndex.reconfigure(edit_budget=...)``).  0 = exact.
-    multiterm_gap: the JAX package's multi-term skip width.  Only its
-        default is taken: multi-term completion is not ported yet, and
-        any other value raises ``NotImplementedError``.
+    multiterm_gap: kind="multiterm": the most dictionary tokens a typed
+        space may skip.  Ignored by other kinds.
     """
 
     kind: str = "et"
@@ -64,8 +67,6 @@ class IndexSpec:
     multiterm_gap: int = 2
 
     def validate(self) -> "IndexSpec":
-        if self.kind == "multiterm":
-            raise not_ported("multiterm")
         if self.kind not in _BUILDERS:
             raise ValueError(
                 f"unknown index kind {self.kind!r}; registered kinds: "
@@ -92,8 +93,6 @@ class IndexSpec:
         if not 0 <= self.edit_budget <= 2:
             raise ValueError(
                 f"edit_budget must be in [0, 2], got {self.edit_budget}")
-        if self.multiterm_gap != 2:
-            raise not_ported("multiterm")
         return self
 
     def validate_sharded(self) -> "IndexSpec":
@@ -101,6 +100,9 @@ class IndexSpec:
 
     def replace(self, **kw) -> "IndexSpec":
         return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
 
     @classmethod
     def from_dict(cls, d: dict) -> "IndexSpec":
@@ -142,6 +144,31 @@ def register_builder(kind: str):
         return fn
 
     return deco
+
+
+# Optional per-kind rule synthesizers: run before link finding, they map
+# (spec, strings, user rules) to extra SynonymRules the kind derives from
+# the corpus itself (e.g. the multiterm token-skip rules).
+Synthesizer = Callable[[IndexSpec, list, list], list]
+
+_SYNTHESIZERS: dict[str, Synthesizer] = {}
+
+
+def register_rule_synthesizer(kind: str):
+    """Register a corpus-driven rule synthesizer for an index kind."""
+
+    def deco(fn: Synthesizer) -> Synthesizer:
+        if kind in _SYNTHESIZERS:
+            raise ValueError(f"synthesizer for kind {kind!r} already "
+                             "registered")
+        _SYNTHESIZERS[kind] = fn
+        return fn
+
+    return deco
+
+
+def get_synthesizer(kind: str) -> Synthesizer | None:
+    return _SYNTHESIZERS.get(kind)
 
 
 def get_builder(kind: str) -> Builder:

@@ -15,6 +15,16 @@ import torch
 from repro_torch.core.engine.structs import INT_MAX, NEG_ONE
 
 
+def resolve_sub(cfg, sub):
+    """Substrate threading helper: explicit ``sub`` wins, else the registry
+    entry named by ``cfg.substrate`` (late import: the registry module
+    imports this one)."""
+    if sub is not None:
+        return sub
+    from repro_torch.core.engine.substrate import get_substrate
+    return get_substrate(cfg.substrate)
+
+
 def iters_for(n: int) -> int:
     return max(1, int(math.ceil(math.log2(max(n, 1) + 1))))
 

@@ -2,6 +2,9 @@
 
 A substrate bundles the engine's batched hot primitives behind one seam:
 
+- ``csr_child_lookup`` / ``dedup_compact`` — the inner frontier ops a
+  session's keystroke threads through (one character step of the locus
+  DP; see :mod:`~repro_torch.core.engine.incremental`);
 - ``walk_batch`` — phase 1, query batch -> locus antichains + overflow
   counts;
 - ``topk_with_payload`` — top-k select with a payload, ties to the lower
@@ -24,6 +27,12 @@ A substrate bundles the engine's batched hot primitives behind one seam:
   with their plain versions, so the routing itself runs under the CPU
   tests.)
 
+The keystroke seams are the one place where ``"cuda"`` runs the plain
+versions, by inheritance, as the JAX package's pallas substrate inherits
+them from jnp: neither package has a kernel for a keystroke's advance, so
+this is no fallback from a kernel.  A session's phase 2 runs on the
+kernels.
+
 ``resolve_substrate("auto", device)`` picks ``cuda`` on a CUDA device and
 ``torch`` on the CPU.
 """
@@ -32,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.engine import beam, cached, locus
+from repro_torch.core.engine import beam, cached, locus, primitives
 from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import DeviceTrie, EngineConfig
 
@@ -41,6 +50,17 @@ class TorchSubstrate:
     """Plain PyTorch reference substrate (the analogue of ``"jnp"``)."""
 
     name = "torch"
+
+    # -- the keystroke's inner ops (inherited by "cuda") --------------------
+
+    def csr_child_lookup(self, ptr, chars, children, nodes, ch, iters: int):
+        return primitives.csr_child_lookup(ptr, chars, children, nodes, ch,
+                                           iters)
+
+    def dedup_compact(self, vec, width: int):
+        return primitives.dedup_pad(vec, width)
+
+    # -- phases --------------------------------------------------------------
 
     def walk_batch(self, t: DeviceTrie, cfg: EngineConfig, qs, qlens):
         """qs int32[B, L] (-1 padded), qlens int32[B] ->
@@ -166,11 +186,35 @@ def _phase2_batch(t, cfg, loci, k, sub):
     return sub.beam_topk_batch(t, cfg, loci, k)
 
 
+def topk_phase2(t: DeviceTrie, cfg: EngineConfig, loci, k: int, sub=None):
+    """Single-row phase 2 (loci [F]); used by the incremental session."""
+    s, p, e = topk_phase2_batch(t, cfg, loci[None], k, sub)
+    return s[0], p[0], e[0]
+
+
+def topk_phase2_batch(t: DeviceTrie, cfg: EngineConfig, loci, k: int,
+                      sub=None):
+    """Batched phase 2 (loci [B, F]) -> (scores[B, k], sids[B, k],
+    exact[B]); one launch for a whole block of sessions."""
+    sub = primitives.resolve_sub(cfg, sub)
+    return _phase2_batch(t, cfg, loci, k, sub)
+
+
 def complete_batch(t: DeviceTrie, cfg: EngineConfig, qs, qlens, k: int,
                    sub=None):
     """qs int32[B, L]; qlens int32[B] -> (scores[B, k], sids[B, k],
     exact[B])."""
-    sub = sub if sub is not None else get_substrate(cfg.substrate)
+    sub = primitives.resolve_sub(cfg, sub)
     loci, overflow = sub.walk_batch(t, cfg, qs, qlens)
     scores, sids, exact = _phase2_batch(t, cfg, loci, k, sub)
     return scores, sids, exact & (overflow == 0)
+
+
+def complete_one(t: DeviceTrie, cfg: EngineConfig, q, qlen, k: int,
+                 sub=None):
+    """q int32[L], qlen int32[] -> (scores[k], sids[k], exact[])."""
+    scores, sids, exact = complete_batch(
+        t, cfg, q[None],
+        torch.as_tensor(qlen, dtype=torch.int32, device=q.device).reshape(1),
+        k, sub)
+    return scores[0], sids[0], exact[0]

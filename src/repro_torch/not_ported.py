@@ -7,14 +7,10 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "sessions": (4, "incremental sessions"),
     "scheduler": (5, "the keystroke scheduler (batching=True)"),
     "reranking": (5, "reranking"),
     "mutations": (6, "online mutations"),
     "sharding": (8, "sharded indexes"),
-    "save": (9, "saving an index (containers saved by the JAX package "
-                "load with load_index)"),
-    "multiterm": (9, "kind='multiterm' (multi-term completion)"),
 }
 
 

@@ -68,14 +68,17 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-@pytest.mark.parametrize("entry", ["build_index", "load_index"])
+@pytest.mark.parametrize("entry", ["build_index", "load_index",
+                                   "CompletionIndex.load"])
 def test_default_device_raises_without_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "build_index":
             rt.build_index(*PAPER[:2], [])
-        else:
+        elif entry == "load_index":
             rt.load_index(str(tmp_path / "missing.npz"))
+        else:
+            rt.CompletionIndex.load(str(tmp_path / "missing.npz"))
 
 
 def test_auto_substrate_follows_the_device():
@@ -88,27 +91,17 @@ def test_auto_substrate_follows_the_device():
         resolve_substrate("jnp", "cpu")
 
 
-SPEC_OPTIONS = [dict(kind="multiterm")]
-
-
-@pytest.mark.parametrize("opt", SPEC_OPTIONS, ids=lambda o: next(iter(o)))
-def test_out_of_slice_spec_options_raise(opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.build_index(*PAPER[:2], [], device="cpu", **opt)
-
-
 SURFACES = [
-    ("session", lambda i: i.session(k=3)),
     ("insert", lambda i: i.insert("andy", 3)),
     ("delete", lambda i: i.delete("andrew pavlo")),
     ("update_score", lambda i: i.update_score("andrew pavlo", 9)),
     ("compact", lambda i: i.compact()),
-    ("save", lambda i: i.save("x.npz")),
     ("sharded", lambda i: i.spec.validate_sharded()),
     ("service_batching", lambda i: rt.CompletionService(i, batching=True)),
     ("service_reranker",
      lambda i: rt.CompletionService(i, reranker=lambda q, r: r)),
-    ("service_session", lambda i: rt.CompletionService(i).open_session()),
+    ("service_submit",
+     lambda i: rt.CompletionService(i).open_session().submit("a")),
 ]
 
 
@@ -129,6 +122,7 @@ def test_no_fallback_between_kernel_and_plain_version():
                 "core/engine/substrate.py",
                 "core/engine/locus.py", "core/engine/beam.py",
                 "core/engine/packed.py", "core/engine/cached.py",
-                "api/index.py"):
+                "core/engine/incremental.py", "api/index.py",
+                "api/session.py"):
         text = (ROOT / "src" / "repro_torch" / mod).read_text()
         assert "try:" not in text, mod

@@ -63,6 +63,7 @@ def test_field_sets_match_repro():
 
 SPEC_CASES = [dict(memory_budget=4096), dict(memory_budget=0),
               dict(memory_budget=-1), dict(cache_k=-1), dict(multiterm_gap=0),
+              dict(multiterm_gap=1), dict(multiterm_gap=3),
               dict(frontier=0), dict(memory_budget=1 << 30, edit_budget=1)]
 
 
@@ -82,13 +83,6 @@ def test_spec_and_build_accept_or_raise_as_repro(spec):
         idx = rt.build_index(strings, scores, [], kind="et", device="cpu",
                              **spec)
         assert idx.cfg.memory_budget == idx.spec.memory_budget == p[1]
-
-
-def test_multiterm_gap_other_than_default_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.IndexSpec(multiterm_gap=3).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.build_index(*_pair_data(), [], device="cpu", multiterm_gap=3)
 
 
 RECONFIGURE_SEQUENCES = {
