@@ -22,9 +22,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    32, 64, 128 and 256, and with its rows forced into the device-memory
    workspace) and the beam on those loci at each retry round's widths (W
    = 48 to 3,072; 16 queries past W = 192) on USPS ET and DBLP HT; both on
-   a batch of queries of 1 and of 32 characters; the beam at the first
-   three rounds' widths (W = 48 to 768) on two tie-heavy USPS ET 100k
-   corpora (every score equal; scores drawn from three values);
+   a batch of queries of 1 and of 32 characters; the beam at every
+   round's width (W = 48 to 3,072; 16 queries past W = 192) on two
+   tie-heavy USPS ET 100k corpora (every score equal; scores drawn from
+   three values), the packed and the dense beam also equal;
    ``trie_walk``, both entries ((node, depth) and the loci of the
    rule-free phase 1), on USPS plain
    100k's CSR, DBLP's dictionary CSR, a random byte-string corpus (root
@@ -71,14 +72,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and each packed index's answers must equal the dense index's of the
    same cache depth and edit budget (node ids are shared, so the layouts
    agree bit for bit);
-5. typing sessions, save and load, multi-term completion: the first 48
+4b. live serving, ahead of phase 5's keystroke traces: (a) the keystroke
+   scheduler on USPS ET 1M with ``cache_k=16`` (dense and packed), without
+   a cache, and on USPS plain 100k with ``cache_k=16``: ``serve_zipf``'s
+   workload (``make_keystroke_events``, 8 sessions, seed 1, cut from 64
+   queries to 32 for time; block 8, ``max_wait_ms=2.0``) replayed a
+   keystroke at a time through ``open_session`` and through
+   ``CompletionService(batching=True)`` after a warm-up of the first 64
+   events, every keystroke's answer equal both ways, every flush's
+   dispatch under CUDA's sync debug mode "error" (µs a keystroke each
+   way, batched p50/p99, flushes, occupancy, deadline flushes,
+   fallbacks), and one full flush traced by the profiler (its CUDA
+   kernels and the device's busy share; an empty trace or one without
+   the phase-2 kernel fails the run); (b) ``serve_churn``'s loop on USPS
+   ET 100k with ``cache_k=16`` (64 queries): a mutation batch every 64
+   events, ``compact()`` at a backlog of 48 under the live lanes
+   (mutation ms, compaction seconds, migrations, no keystroke lost, every
+   keystroke equal to ``complete`` on its prefix in the state it was
+   answered in, probe answers equal across each fold), then the 512-query
+   batch workload on the mutated index equal on ``"cuda"`` and
+   ``"torch"``; (c) on a
+   copy of USPS ET 1M packed ``cache_k=16``, 16 inserts that synonym
+   rules reach, 16 deletes and 16 re-scores of strings in the workload's
+   top-10s, then the 512-query batch workload against the unmutated run
+   (p50/p99; answers equal on both substrates on the first 128 queries,
+   no deleted string shown);
+5. typing sessions, save and load, multi-term completion: the first 32
    queries of the batch workload typed one byte at a time through
    ``CompletionService.open_session(k=10)`` (one warm-up query, a
    ``reset`` between queries) on USPS ET 1M with ``cache_k=16`` (dense and
    packed: ``locus_topk_merge`` at B=1), without a cache (the beam at
    B=1), at ``edit_budget=1``, and on USPS plain 100k with ``cache_k=16``
-   (``topk_select`` at B=1): every keystroke of the first 32 equal to
-   ``complete`` on its prefix and to the ``"torch"`` substrate's session,
+   (``topk_select`` at B=1): every keystroke equal to ``complete`` on its
+   prefix and to the ``"torch"`` substrate's session (of 8 queries on the
+   path without a cache),
    the phase-2 kernel launched, no plain version run, ms per keystroke
    (p50, p99), keystrokes per second and the hit rate; for one keystroke
    of each, no host sync in init and advance (CUDA's sync debug mode), the
@@ -155,6 +182,20 @@ PAPER_B_PER_STRING = (160, 200)   # the paper's space claim
 # keystroke on an H100 host) holds fewer
 SESSION_QUERIES = (32, 32)
 SESSION_QUERIES_TORCH_BEAM = 8
+# live serving: serve_zipf's and serve_churn's defaults
+# (src/repro/launch/serve.py) — 8 sessions of 64 Zipf queries, block 8,
+# a 2 ms latency budget, a mutation batch every 64 events, compaction at a
+# backlog of 48 — with the scheduler's replays cut to 32 queries for time
+# (the churn keeps 64: its compaction needs the backlog), the first 64
+# events a warm-up; 16 inserts, deletes and re-scores on USPS ET 1M, the
+# torch substrate holding the first 128 queries of the mutated batch
+# (its plain packed beam at k = 42)
+SERVE_SESSIONS, SERVE_BLOCK, SERVE_WAIT_MS = 8, 8, 2.0
+SERVE_QUERIES, CHURN_QUERIES = 32, 64
+SERVE_WARMUP_EVENTS = 64
+CHURN_EVERY, COMPACT_AT = 64, 48
+N_MUTATE = 16
+N_MUTATED_TORCH = 128
 # the multi-term build's corpus, cut from DBLP's 24,810 strings: its
 # synthesized rules grow fast with the corpus
 N_DBLP_MULTITERM = 1_000
@@ -462,7 +503,8 @@ def main() -> int:
     from repro_torch.core.engine import beam, cached, locus
     from repro_torch.core.engine.substrate import get_substrate
     from repro_torch.core.trie_build import make_rules
-    from repro_torch.data.strings import make_dblp, make_usps, make_workload
+    from repro_torch.data.strings import (make_dblp, make_keystroke_events,
+                                          make_usps, make_workload)
     from repro_torch.kernels import (_build, beam_topk, candidate_topk,
                                      embedding_bag, locus_dp, locus_merge,
                                      ops, topk_select, trie_walk)
@@ -1293,6 +1335,348 @@ def main() -> int:
         log(f"profile {name}, one batch of {B}: "
             f"{batch_trace(prof, name, must)}")
 
+    # -- phase 4b: live serving (the keystroke scheduler, mutations) -----------
+    log(f"phase 4b at {time.perf_counter() - t_start:.1f} s")
+
+    def record_all(c):
+        # every kernel the path launched (an inexact keystroke's answer
+        # comes from complete, whose walk and retry launch too)
+        record(c, *[k_name for k_name in counters if c[k_name] > 0],
+               by_width=False)
+
+    def replay_sequential(service, events, n_sessions):
+        """One advance and one phase 2 per keystroke, each session typed
+        through its own ServiceSession (the launcher's pre-batching
+        shape)."""
+        sessions = [service.open_session(k=K) for _ in range(n_sessions)]
+        out = []
+        for s, c in events:
+            if c < 0:
+                sessions[s].reset()
+            else:
+                out.append(sessions[s].type(bytes([c])))
+        for sess in sessions:
+            sess.close()
+        return out
+
+    def replay_batched(service, events, n_sessions, churn=None):
+        """Keystrokes submitted without blocking so the sessions'
+        keystrokes coalesce; backpressure sheds load with one forced
+        flush, a session whose stream ends closes at once.  ``churn(i,
+        tickets)`` runs before event i.  The tickets, in submit order."""
+        remaining = [0] * n_sessions
+        for s, _ in events:
+            remaining[s] += 1
+        sessions = [service.open_session(k=K) for _ in range(n_sessions)]
+        tickets = []
+        for i, (s, c) in enumerate(events):
+            if churn is not None:
+                churn(i, tickets)
+            if c < 0:
+                sessions[s].reset()
+            else:
+                try:
+                    tickets.append(sessions[s].submit(c))
+                except rt.SchedulerOverloaded:
+                    service.flush()
+                    tickets.append(sessions[s].submit(c))
+            remaining[s] -= 1
+            if remaining[s] == 0:
+                sessions[s].close()
+        service.drain()
+        return tickets
+
+    def no_sync_dispatch(sched):
+        """Hold every flush's dispatch (advance, phase 2, the packed
+        non-blocking copy) under CUDA's sync debug mode "error": a host
+        sync in it raises."""
+        dispatch = sched._dispatch
+
+        def guarded(kind):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(kind)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        sched._dispatch = guarded
+
+    def flush_trace(name, sched, sessions, must):
+        """One full flush (a keystroke of every lane) and its settle
+        under the profiler: the CUDA kernels in the window, the device's
+        busy share; raises where the trace is empty or lacks the phase-2
+        kernel."""
+        for s in sessions:
+            s.submit(b"a")
+        sched.drain()
+        n0 = sched.stats.n_flushes
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function(BATCH_WINDOW):
+                tickets = [s.submit(b"n") for s in sessions]
+                sched.drain()
+        if sched.stats.n_flushes - n0 != 1 or not all(t.done
+                                                      for t in tickets):
+            raise AssertionError(f"profile flush {name}: "
+                                 f"{sched.stats.n_flushes - n0} flushes")
+        kernels = device_kernels(prof, BATCH_WINDOW)
+        trace = batch_trace(prof, f"flush {name}", ())
+        phase2 = {k: v for k, v in kernels.items()
+                  if k in PHASE2_KERNELS[must]}
+        if not phase2:
+            raise AssertionError(f"profile flush {name}: no "
+                                 f"{PHASE2_KERNELS[must]} in the trace: "
+                                 f"{sorted(kernels)}")
+        log(f"  profile one flush of {sched.block} lanes, {name}: "
+            f"{sum(n for n, _ in kernels.values())} CUDA kernels; {trace}")
+
+    # (a) the scheduler against sequential sessions on four paths:
+    # serve_zipf's workload and defaults
+    n_serve_queries = 16 if args.small else SERVE_QUERIES
+    for name, idx, ds, must in (
+            ("USPS ET cache_k=16", usps_et_c, usps, "locus_topk_merge"),
+            ("USPS ET packed cache_k=16", usps_et_pc, usps,
+             "locus_topk_merge"),
+            ("USPS ET", usps_et, usps, "beam_topk"),
+            ("USPS plain cache_k=16", usps_plain_c, usps_small,
+             "topk_select")):
+        events = make_keystroke_events(ds, SERVE_SESSIONS, n_serve_queries,
+                                       seed=1)
+        seq = rt.CompletionService(idx)
+        bat = rt.CompletionService(idx, batching=True, block=SERVE_BLOCK,
+                                   max_wait_ms=SERVE_WAIT_MS)
+        warm = events[:SERVE_WARMUP_EVENTS]
+        replay_sequential(seq, warm, SERVE_SESSIONS)
+        replay_batched(bat, warm, SERVE_SESSIONS)
+        sched = bat.scheduler
+        no_sync_dispatch(sched)
+        seq.reset_stats()
+        bat.reset_stats()
+        sched.stats = rt.BatchStats()
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        want = replay_sequential(seq, events, SERVE_SESSIONS)
+        seq_s = time.perf_counter() - t
+        c_seq = counts()
+        reset_counts()
+        t = time.perf_counter()
+        got = [tk.results for tk in replay_batched(bat, events,
+                                                   SERVE_SESSIONS)]
+        bat_s = time.perf_counter() - t
+        c_bat = counts()
+        st, n = sched.stats, len(want)
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"scheduler {name}: batched and sequential "
+                                 f"answers differ at keystrokes {bad[:5]}")
+        for what, c in (("sequential", c_seq), ("batched", c_bat)):
+            if c[must] <= 0 or c["plain"]:
+                raise AssertionError(f"scheduler {name} {what}: launches {c}")
+        if st.n_keystrokes != n or bat.stats.n_keystrokes != n:
+            raise AssertionError(f"scheduler {name}: {st.n_keystrokes} "
+                                 f"keystrokes flushed, {n} typed")
+        record_all(c_seq)
+        record_all(c_bat)
+        log(f"scheduler {name}: {n} keystrokes of {SERVE_SESSIONS} sessions "
+            f"({n_serve_queries} queries), k={K}, block {SERVE_BLOCK}, "
+            f"max_wait_ms {SERVE_WAIT_MS}: every keystroke batched equals "
+            f"sequential; sequential {seq_s / n * 1e6:.1f} us a keystroke "
+            f"(p50 {seq.stats.p50_keystroke_ms():.3f}, p99 "
+            f"{seq.stats.p99_keystroke_ms():.3f} ms), batched "
+            f"{bat_s / n * 1e6:.1f} us a keystroke (p50 "
+            f"{bat.stats.p50_keystroke_ms():.3f}, p99 "
+            f"{bat.stats.p99_keystroke_ms():.3f} ms), "
+            f"{seq_s / bat_s:.2f}x; {st.n_flushes} flushes ({st.full_flushes} "
+            f"full, {st.deadline_flushes} deadline, {st.forced_flushes} "
+            f"forced), mean occupancy {st.mean_occupancy:.2f}, "
+            f"{st.fallbacks} fallbacks, {st.rejected} rejected; no host "
+            f"sync in any flush's dispatch; launches sequential "
+            f"{ {k: v for k, v in c_seq.items() if k != 'widths' and v} }, "
+            f"batched { {k: v for k, v in c_bat.items() if k != 'widths' and v} }")
+        trace_sessions = [bat.open_session(k=K) for _ in range(SERVE_BLOCK)]
+        flush_trace(name, sched, trace_sessions, must)
+        for s in trace_sessions:
+            s.close()
+        del seq, bat, sched
+    log(f"scheduler done at {time.perf_counter() - t_start:.1f} s")
+
+    # (b) churn: serve_churn's loop on USPS ET 100k with cache_k=16 — a
+    # mutation batch every CHURN_EVERY events, compaction at a backlog of
+    # COMPACT_AT, the scheduler's lanes migrating across each swap
+    t = time.perf_counter()
+    churn_idx = rt.build_index(usps_small.strings, usps_small.scores,
+                               make_rules(usps_small.rules),
+                               rt.IndexSpec(kind="et", cache_k=CACHE_K),
+                               device=dev)
+    torch.cuda.synchronize()
+    log(f"build USPS ET cache_k=16 ({len(usps_small.strings)} strings): "
+        f"{time.perf_counter() - t:.3f} s")
+    events = make_keystroke_events(usps_small, SERVE_SESSIONS,
+                                   16 if args.small else CHURN_QUERIES,
+                                   seed=1)
+    svc = rt.CompletionService(churn_idx, batching=True, block=SERVE_BLOCK,
+                               max_wait_ms=SERVE_WAIT_MS)
+    rng = np.random.default_rng(2)
+    base_strings = list(churn_idx.strings)
+    deleted = set()
+    churn = {"insert": 0, "delete": 0, "rescore": 0, "n_hot": 0,
+             "mut_s": 0.0, "compact_s": [], "fold": [],
+             "seen": 0, "open": [], "held": 0}
+    compact_at = 8 if args.small else COMPACT_AT
+
+    def hold_resolved(tickets):
+        """Every ticket resolved since the last mutation against
+        ``complete`` on its prefix now: no mutation has landed since it
+        was answered, so the index's state is the one it was answered
+        on."""
+        churn["open"] += range(churn["seen"], len(tickets))
+        churn["seen"] = len(tickets)
+        ready = [j for j in churn["open"] if tickets[j].done]
+        churn["open"] = [j for j in churn["open"] if not tickets[j].done]
+        if not ready:
+            return
+        want = churn_idx.complete([tickets[j].prefix for j in ready], k=K)
+        bad = [j for j, w in zip(ready, want) if tickets[j].results != w]
+        if bad:
+            raise AssertionError(f"churn: keystrokes {bad[:5]} answer "
+                                 "otherwise than complete on their prefix")
+        churn["held"] += len(ready)
+
+    def churn_step(i, tickets):
+        if not i or i % CHURN_EVERY:
+            return
+        hold_resolved(tickets)
+        m = time.perf_counter()
+        churn_idx.insert(b"zz~trending-%d" % churn["n_hot"],
+                         int(rng.integers(1, 1000)))
+        churn["n_hot"] += 1
+        churn["insert"] += 1
+        victim = base_strings[int(rng.integers(len(base_strings)))]
+        if victim not in deleted:
+            churn_idx.delete(victim)
+            deleted.add(victim)
+            churn["delete"] += 1
+        target = base_strings[int(rng.integers(len(base_strings)))]
+        if target not in deleted:
+            churn_idx.update_score(target, int(rng.integers(1, 1000)))
+            churn["rescore"] += 1
+        churn["mut_s"] += time.perf_counter() - m
+        if churn_idx.mutation_backlog >= compact_at:
+            # probe answers on the typed prefixes' heads across the fold
+            probe = sorted({bytes(tk.prefix)[:3] for tk in tickets})[:24]
+            pre = churn_idx.complete(probe, k=K)
+            m = time.perf_counter()
+            svc.compact()
+            churn["compact_s"].append(time.perf_counter() - m)
+            churn["fold"].append((len(probe),
+                                  churn_idx.complete(probe, k=K) == pre))
+
+    reset_counts()
+    t = time.perf_counter()
+    tickets = replay_batched(svc, events, SERVE_SESSIONS, churn_step)
+    churn_s = time.perf_counter() - t
+    c_churn = counts()
+    lost = sum(tk.results is None for tk in tickets)
+    if not lost:
+        hold_resolved(tickets)
+    st = svc.scheduler.stats
+    n_mut = churn["insert"] + churn["delete"] + churn["rescore"]
+    log(f"churn USPS ET cache_k=16: {len(tickets)} keystrokes in "
+        f"{churn_s:.3f} s ({churn_s / len(tickets) * 1e6:.1f} us a "
+        f"keystroke, p50 {svc.stats.p50_keystroke_ms():.3f}, p99 "
+        f"{svc.stats.p99_keystroke_ms():.3f} ms); mutations "
+        f"{ {k: churn[k] for k in ('insert', 'delete', 'rescore')} }, "
+        f"{churn['mut_s'] / max(n_mut, 1) * 1e3:.3f} ms a mutation call; "
+        f"compactions {len(churn['compact_s'])} mid-stream ("
+        + ", ".join(f"{s:.3f} s" for s in churn["compact_s"])
+        + f"), probes equal across each fold "
+        f"{[f'{n}: {same}' for n, same in churn['fold']]}, migrations "
+        f"{st.migrations}, lost keystrokes {lost}, {churn['held']} "
+        f"keystrokes equal complete on their prefix, "
+        f"{st.n_flushes} flushes, mean occupancy {st.mean_occupancy:.2f}, "
+        f"{st.fallbacks} fallbacks, backlog {churn_idx.mutation_backlog}, "
+        f"launches { {k: v for k, v in c_churn.items() if k != 'widths' and v} }")
+    if lost or not churn["compact_s"] or st.migrations < 1:
+        raise AssertionError(f"churn: lost {lost} keystrokes, "
+                             f"{len(churn['compact_s'])} compactions, "
+                             f"{st.migrations} migrations")
+    if churn["held"] != len(tickets):
+        raise AssertionError(f"churn: {churn['held']} of {len(tickets)} "
+                             "keystrokes held against complete")
+    if not all(same for _, same in churn["fold"]):
+        raise AssertionError("churn: answers changed across a fold")
+    for k_name in ("locus_dp", "topk_select"):   # the walk, the merge
+        if c_churn[k_name] <= 0:
+            raise AssertionError(f"churn: {k_name} never launched")
+    if c_churn["plain"]:
+        raise AssertionError("churn: a plain version ran")
+    record_all(c_churn)
+    if not churn_idx.has_mutations:
+        raise AssertionError("churn: no mutation pending at the stream's end")
+
+    def mutated_batch(name, idx, ds, must, n_check=None):
+        """The 512-query batch workload on a mutated index through the
+        service: launches, p50/p99, answers on cuda equal the torch
+        substrate's (the first ``n_check``)."""
+        out = main_path(name, idx, ds, must, n_check=n_check)
+        if out["topk_select"] <= 0:
+            raise AssertionError(f"{name}: the overlay merge never ran")
+        record_all(out)
+        return out
+
+    mutated_batch("USPS ET cache_k=16 churned", churn_idx, usps_small,
+                  ("locus_dp", "topk_select"))
+    del svc, churn_idx
+
+    # (c) mutations on USPS ET 1M packed with cache_k=16 (a copy of the
+    # phase-4 index on the card): inserts that synonym rules reach,
+    # deletes and re-scores of strings in the workload's top-10s
+    mut = rt.CompletionIndex.from_parts(
+        usps_et_pc.trie, usps_et_pc.rule_trie, usps_et_pc.rules,
+        usps_et_pc.strings, usps_et_pc.scores, usps_et_pc.cfg, device=dev,
+        spec=usps_et_pc.spec, stats=usps_et_pc.stats)
+    reset_counts()
+    main_path("USPS ET packed cache_k=16 unmutated", mut, usps,
+              ("locus_dp_packed", "locus_topk_merge"), n_check=0)
+    top = sorted({s for row in answers["USPS ET packed cache_k=16 unmutated"]
+                  for _, s in row})
+    hits = [s for i, s in enumerate(top) if i % 2 == 0][:N_MUTATE]
+    rescored = [s for i, s in enumerate(top) if i % 2 == 1][:N_MUTATE]
+    firsts = ("andrew", "robert", "william", "michael")
+    t = time.perf_counter()
+    for i in range(N_MUTATE):
+        mut.insert(f"{firsts[i % 4]} zz{i:02d} {1000 + i} park avenue "
+                   f"hillville california", 50_001 + i)
+    for s in hits:
+        mut.delete(s)
+    for i, s in enumerate(rescored):
+        mut.update_score(s, 1 + i)
+    calls_s = time.perf_counter() - t
+    t = time.perf_counter()
+    live = mut.live_strings            # the overlay's refresh
+    refresh_s = time.perf_counter() - t
+    log(f"mutate USPS ET packed cache_k=16: {3 * N_MUTATE} mutation calls "
+        f"{calls_s * 1e3:.3f} ms, refresh (ranks over {len(live)} live "
+        f"strings, the side index) {refresh_s:.3f} s, backlog "
+        f"{mut.mutation_backlog}")
+    # the base over-fetched past cache_k (the packed beam), the side index
+    # (dense, the rules applied), the merge
+    mutated_batch("USPS ET packed cache_k=16 mutated", mut, usps,
+                  ("locus_dp_packed", "beam_topk_packed", "locus_dp",
+                   "topk_select"), n_check=N_MUTATED_TORCH)
+    got = answers["USPS ET packed cache_k=16 mutated"]
+    shown = {s for row in got for _, s in row}
+    if shown & set(hits) or not any(s.startswith(firsts) and " zz" in s
+                                    for s in shown):
+        raise AssertionError("mutated answers show a deleted string or no "
+                             "inserted one")
+    log("  mutated answers: no deleted string, "
+        f"{sum(' zz' in s for s in shown)} inserted strings shown")
+    del mut
+    log(f"live serving done at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 5: typing sessions, save and load, multi-term completion ---------
     log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
     n_typed, n_typed_check = (16, 16) if args.small else SESSION_QUERIES
@@ -1433,12 +1817,6 @@ def main() -> int:
             + ", ".join(f"{k} {n}x {t:.2f} us" for k, (n, t) in
                         phase2.items())
             + f"; no host sync in init/advance ({len(qb)} advances)")
-
-    def record_all(c):
-        # every kernel the path launched (an inexact keystroke's answer
-        # comes from complete, whose walk and retry launch too)
-        record(c, *[k_name for k_name in counters if c[k_name] > 0],
-               by_width=False)
 
     # (a) typing sessions on the built indexes, B=1 a keystroke
     for name, idx, ds, phase2 in (

@@ -8,7 +8,11 @@ layout and names.  Entry points (:func:`build_index`, :func:`load_index`,
 
 from repro_torch.api import (CompletionIndex, IndexSpec, Session,
                              build_index, load_index)
-from repro_torch.serving.completion_service import CompletionService
+from repro_torch.serving import (BatchSession, BatchStats, CompletionService,
+                                 KeystrokeScheduler, SchedulerOverloaded,
+                                 ServiceSession, ServiceStats, Ticket)
 
-__all__ = ["CompletionIndex", "CompletionService", "IndexSpec", "Session",
-           "build_index", "load_index"]
+__all__ = ["BatchSession", "BatchStats", "CompletionIndex",
+           "CompletionService", "IndexSpec", "KeystrokeScheduler",
+           "SchedulerOverloaded", "ServiceSession", "ServiceStats",
+           "Session", "Ticket", "build_index", "load_index"]

@@ -1,20 +1,32 @@
-"""CompletionIndex: the queryable, persistable completion index on one
-device.
+"""CompletionIndex: the queryable, persistable, *mutable* completion index
+on one device.
 
 Construction lives in :mod:`repro_torch.api.build` (driven by an
 :class:`~repro_torch.api.spec.IndexSpec`) and the container in
 :mod:`repro_torch.api.persist`; this module owns the device tensors,
-batched lookup with the exactness-retry guard, ``save``/``load`` and the
-session entry points.  PyTorch runs eagerly, so there is no compile cache;
-batch and query length are still bucketed to powers of two, as in the JAX
-package, so both packages run every query at the same shapes.
+batched lookup with the exactness-retry guard, ``save``/``load``, the
+session and scheduler-slab entry points, and the online-mutation surface:
+
+- ``insert``/``delete``/``update_score`` land in a
+  :class:`~repro_torch.core.engine.overlay.DeltaOverlay` (tombstones and a
+  small side index) merged into results at top-k time — no rebuild per
+  change;
+- ``compact()`` folds the overlay into a freshly built index and swaps it
+  in place.  The index is *epoch-versioned*: every swap (and every
+  :meth:`reconfigure`) bumps ``epoch``, and live sessions and scheduler
+  slabs migrate onto the new epoch at their next keystroke boundary by
+  replaying their retained prefixes.
+
+PyTorch runs eagerly, so there is no compile cache; batch and query
+length are still bucketed to powers of two, as in the JAX package, so
+both packages run every query at the same shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -26,9 +38,9 @@ from repro_torch.core import trie_build as tb
 from repro_torch.core.alphabet import pad_queries
 from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine import substrate as subs
+from repro_torch.core.engine.overlay import DeltaOverlay
 from repro_torch.core.engine.structs import (DeviceTrie, EngineConfig,
                                              resolve_device)
-from repro_torch.not_ported import not_ported
 
 #: IndexSpec fields :meth:`CompletionIndex.reconfigure` may change
 RUNTIME_FIELDS = ("substrate", "memory_budget", "frontier", "gens",
@@ -111,6 +123,16 @@ def _as_port(cls, obj):
     return cls(**{n: getattr(obj, n) for n in names if hasattr(obj, n)})
 
 
+@dataclass
+class PreparedCompaction:
+    """A compaction ready to swap in: the freshly built index and the
+    {string: score} snapshot it was built from (mutations landing after
+    the snapshot are re-applied as a new overlay at apply time)."""
+
+    index: "CompletionIndex"
+    snapshot: dict
+
+
 class CompletionIndex:
     """A synonym-aware top-k completion index (TT, ET, HT or plain)."""
 
@@ -130,9 +152,11 @@ class CompletionIndex:
         #: queries re-run by each widened retry round (1st, 2nd, 3rd),
         #: summed over every lookup since the index was made
         self.retried = [0, 0, 0]
-        #: bumped by every :meth:`reconfigure` that changes something;
-        #: sessions compare against it to know when to migrate
+        #: bumped by every swap (:meth:`compact`) and every
+        #: :meth:`reconfigure` that changes something; sessions and
+        #: scheduler slabs compare against it to know when to migrate
         self.epoch = epoch
+        self._overlay: DeltaOverlay | None = None
 
     @classmethod
     def from_parts(cls, trie, rule_trie, rules, strings, scores, cfg,
@@ -256,7 +280,17 @@ class CompletionIndex:
     def save(self, path: str) -> None:
         """Write the versioned npz container (format 4, the JAX package's
         names); ``CompletionIndex.load(path)`` in either package restores
-        it without re-running trie construction."""
+        it without re-running trie construction.
+
+        The container holds only the built base structures, so saving
+        with uncompacted mutations would drop them: fold them first
+        (``compact()``, or ``compact(handoff_path=...)`` to write the
+        folded container in the same step)."""
+        if self.has_mutations:
+            raise ValueError(
+                "index has uncompacted mutations that save() would drop; "
+                "call compact() first — compact(handoff_path=path) writes "
+                "the folded container as part of the swap")
         from repro_torch.api.persist import save_index
 
         save_index(self, path)
@@ -272,6 +306,147 @@ class CompletionIndex:
         return cls(p["spec"], p["trie"], p["rule_trie"], p["rules"],
                    p["strings"], p["scores"], p["cfg"], p["stats"],
                    device=device, epoch=p["epoch"])
+
+    # -- mutations (delta overlay) -----------------------------------------
+
+    @staticmethod
+    def _as_key(string) -> bytes:
+        b = string.encode() if isinstance(string, str) else bytes(string)
+        if not b:
+            raise ValueError("cannot mutate the empty string")
+        return b
+
+    def _overlay_mut(self) -> DeltaOverlay:
+        if self._overlay is None:
+            self._overlay = DeltaOverlay()
+        return self._overlay
+
+    @property
+    def has_mutations(self) -> bool:
+        """True while the overlay holds uncompacted mutations; queries
+        take the merged path and sessions answer through the one-shot
+        lookup until :meth:`compact` folds them away."""
+        ov = self._overlay
+        return ov is not None and ov.active
+
+    @property
+    def mutation_backlog(self) -> int:
+        """Pending overlay entries (inserts and re-scores + tombstones):
+        the serving loop's compaction trigger."""
+        ov = self._overlay
+        return 0 if ov is None else len(ov.added) + len(ov.tombstones)
+
+    def insert(self, string, score: int) -> "CompletionIndex":
+        """Insert (an upsert: re-score if already present) without a
+        rebuild."""
+        if score < 0:
+            raise ValueError("scores are non-negative")
+        self._overlay_mut().upsert(self.strings, self._as_key(string),
+                                   int(score))
+        return self
+
+    def delete(self, string) -> "CompletionIndex":
+        """Delete a live string; raises KeyError when it is not live."""
+        self._overlay_mut().remove(self.strings, self._as_key(string))
+        return self
+
+    def update_score(self, string, score: int) -> "CompletionIndex":
+        """Re-score a live string; raises KeyError when it is not live
+        (unlike the upserting :meth:`insert`)."""
+        b = self._as_key(string)
+        ov = self._overlay
+        live = (ov.is_live(self.strings, b) if ov is not None
+                else DeltaOverlay._base_sid(self.strings, b) >= 0)
+        if not live:
+            raise KeyError(f"{b!r} is not in the index; use insert()")
+        return self.insert(b, score)
+
+    @property
+    def live_strings(self) -> list:
+        """The current dictionary (base − deletions + inserts), sorted;
+        merged-path sids index this list as base sids index
+        :attr:`strings`."""
+        if not self.has_mutations:
+            return self.strings
+        self._overlay.refresh(self)
+        return self._overlay.live
+
+    def live_items(self) -> dict:
+        """{string: score} of the current dictionary contents."""
+        live = {s: int(r) for s, r in zip(
+            self.strings, np.asarray(self.scores).tolist())}
+        ov = self._overlay
+        if ov is not None:
+            for s in ov.tombstones:
+                live.pop(s, None)
+            live.update(ov.added)
+        return live
+
+    # -- compaction / hot-swap ---------------------------------------------
+
+    def prepare_compaction(self) -> PreparedCompaction:
+        """Fold the current contents into a freshly built index on this
+        index's device.
+
+        The expensive half of a compaction: it reads one consistent
+        snapshot and mutates nothing; the cheap :meth:`apply_compaction`
+        swaps it in at a convenient boundary."""
+        from repro_torch.api.build import build_index
+
+        snapshot = self.live_items()
+        strings = sorted(snapshot)
+        scores = [snapshot[s] for s in strings]
+        fresh = build_index(strings, scores, self.rules, self.spec,
+                            device=self.device)
+        return PreparedCompaction(index=fresh, snapshot=snapshot)
+
+    def apply_compaction(
+            self, prepared: PreparedCompaction) -> "CompletionIndex":
+        """Swap a prepared compaction in place (cheap, synchronous).
+
+        Adopts every field of the fresh index — host structures, device
+        tensors, config, counters — so nothing keeps answering from the
+        old tables, and bumps :attr:`epoch` so live sessions and slabs
+        re-derive their state (and refetch their entry points, which close
+        over the tensors) at the next keystroke boundary.  Mutations that
+        landed after the snapshot survive: they are diffed against it and
+        re-applied as a new overlay on the fresh base; a ``reconfigure``
+        that raced the prepare is re-applied on top."""
+        current = self.live_items()
+        desired_spec = self.spec
+        for name, value in vars(prepared.index).items():
+            if name not in ("epoch", "_overlay"):
+                setattr(self, name, value)
+        self._overlay = None
+        self.epoch += 1
+        snap = prepared.snapshot
+        for s, sc in current.items():
+            if snap.get(s) != sc:
+                self.insert(s, sc)
+        for s in snap:
+            if s not in current:
+                self.delete(s)
+        if desired_spec != self.spec:
+            # build-time fields cannot diverge: reconfigure rejects them
+            runtime = {f: getattr(desired_spec, f) for f in RUNTIME_FIELDS
+                       if getattr(desired_spec, f) != getattr(self.spec, f)}
+            if runtime:
+                self.reconfigure(**runtime)
+        return self
+
+    def compact(self, handoff_path: str | None = None) -> "CompletionIndex":
+        """Fold the overlay into a fresh index and swap it in place.
+
+        ``handoff_path`` routes the swap through the format-4 container
+        (save + load): the folded index lands on disk as a side effect, and
+        what is swapped in is what a restarting process would load."""
+        prepared = self.prepare_compaction()
+        if handoff_path is not None:
+            prepared.index.save(handoff_path)
+            prepared = PreparedCompaction(
+                index=CompletionIndex.load(handoff_path, device=self.device),
+                snapshot=prepared.snapshot)
+        return self.apply_compaction(prepared)
 
     # -- sessions ----------------------------------------------------------
 
@@ -293,26 +468,49 @@ class CompletionIndex:
 
         return init, advance, topk
 
+    def _slab_fns(self, block: int):
+        """(init, advance) over ``block`` lanes: the scheduler's pair.
+
+        ``init()`` makes a slab of ``block`` empty-prefix states;
+        ``advance(slab, chars, resets)`` (int32[block] and bool[block] on
+        the index's device) re-initialises the lanes flagged in
+        ``resets`` and then advances every lane whose char is >= 0, with
+        no read back to the host.  The empty-prefix lane depends on the
+        tensors and the config alone, so it is made here, once a
+        scheduler epoch (a migration refetches the pair)."""
+        dev, cfg = self.tensors, self.cfg
+        sub = subs.get_substrate(cfg.substrate)
+        empty = eng.init_locus_batch(dev, cfg, 1, sub)
+
+        def init():
+            return eng.init_locus_batch(dev, cfg, block, sub)
+
+        def advance(slab, chars, resets):
+            slab = eng.LocusState(*(
+                torch.where(resets.reshape((block,) + (1,) * (s.dim() - 1)),
+                            z, s)
+                for s, z in zip(slab, empty)))
+            return eng.advance_loci_batch(dev, cfg, slab, chars, sub)
+
+        return init, advance
+
+    def _slab_topk_fn(self, block: int, k: int):
+        """The top-k of every lane of a slab in one phase-2 launch:
+        slab -> (scores[block, k], sids[block, k], exact[block])."""
+        dev, cfg = self.tensors, self.cfg
+        sub = subs.get_substrate(cfg.substrate)
+
+        def topk(slab):
+            return eng.topk_from_loci_batch(dev, cfg, slab, k, sub)
+
+        return topk
+
     def session(self, k: int = 10):
         """Open a stateful incremental-typing session (see
         :class:`repro_torch.api.session.Session`)."""
         from repro_torch.api.session import Session
 
         return Session(self, k=k)
-
-    # -- out-of-slice surfaces -------------------------------------------
-
-    def insert(self, string, score: int):
-        raise not_ported("mutations")
-
-    def delete(self, string):
-        raise not_ported("mutations")
-
-    def update_score(self, string, score: int):
-        raise not_ported("mutations")
-
-    def compact(self, handoff_path: str | None = None):
-        raise not_ported("mutations")
 
     # -- lookup ------------------------------------------------------------
 
@@ -328,7 +526,17 @@ class CompletionIndex:
                               k: int):
         """Batch entry point: qs int32[B, L] (-1 padded).  Shapes are
         bucketed to powers of two; inexact queries are retried with
-        widened search, up to three rounds (exactness guard of §2.2)."""
+        widened search, up to three rounds (exactness guard of §2.2).
+
+        With pending mutations the answer is the overlay-merged one
+        (:meth:`_complete_mutated`) and the returned sids index
+        :attr:`live_strings`; otherwise they index :attr:`strings` — the
+        two coincide exactly when :attr:`has_mutations` is False."""
+        if self.has_mutations:
+            return self._complete_mutated(qs, qlens, k)
+        return self._complete_base(qs, qlens, k)
+
+    def _complete_base(self, qs: np.ndarray, qlens: np.ndarray, k: int):
         B, L = qs.shape
         Bb, Lb = bucket_size(B, minimum=1), bucket_size(L)
         if (Bb, Lb) != (B, L):
@@ -354,6 +562,45 @@ class CompletionIndex:
             tries += 1
         return scores[:B], sids[:B]
 
+    def _complete_mutated(self, qs: np.ndarray, qlens: np.ndarray, k: int):
+        """Merged lookup under pending mutations.
+
+        The base is over-fetched to k + D' (D' = the tombstone count
+        bucketed to a power of two, so a growing backlog keeps few
+        shapes) — a result row can lose at most every tombstone — then
+        tombstoned hits are masked out on the host and both candidate sets
+        are relabelled to *global ranks* (their sid in a from-scratch
+        rebuild; see :mod:`repro_torch.core.engine.overlay`).  One
+        substrate-routed select returns the top-k bit-identical to that
+        rebuild, and the grank "sids" decode against
+        :attr:`live_strings`."""
+        ov = self._overlay
+        ov.refresh(self)
+        n_dead = int(ov.base_dead.sum())
+        k_base = k + (bucket_size(n_dead, minimum=1) if n_dead else 0)
+        b_scores, b_sids = self._complete_base(qs, qlens, k_base)
+        valid = b_sids >= 0
+        sid0 = np.where(valid, b_sids, 0)
+        keep = valid & ~ov.base_dead[sid0]
+        cand_s = np.where(keep, b_scores, -1).astype(np.int32)
+        cand_g = np.where(keep, ov.base_grank[sid0],
+                          eng.INT_MAX).astype(np.int32)
+        if ov.index is not None:
+            o_scores, o_sids = ov.index.complete_batch_padded(qs, qlens, k)
+            o_valid = o_sids >= 0
+            o_sid0 = np.where(o_valid, o_sids, 0)
+            cand_s = np.concatenate(
+                [cand_s, np.where(o_valid, o_scores, -1).astype(np.int32)],
+                axis=1)
+            cand_g = np.concatenate(
+                [cand_g, np.where(o_valid, ov.ov_grank[o_sid0],
+                                  eng.INT_MAX).astype(np.int32)], axis=1)
+        sub = subs.get_substrate(self.cfg.substrate)
+        scores, granks = eng.merge_overlay_topk(
+            _tensor(cand_s, self.device), _tensor(cand_g, self.device), k,
+            sub)
+        return scores.cpu().numpy(), granks.cpu().numpy()
+
     def complete(self, queries: list[str | bytes], k: int = 10):
         """Top-k completions for a batch of query strings.
 
@@ -368,10 +615,11 @@ class CompletionIndex:
 
     def _decode_row(self, scores, sids) -> list[tuple[int, str]]:
         row = []
+        strings = self.live_strings
         for score, sid in zip(np.asarray(scores).tolist(),
                               np.asarray(sids).tolist()):
             if score < 0 or sid < 0:
                 continue
-            row.append((score, self.strings[sid].decode(
+            row.append((score, strings[sid].decode(
                 "utf-8", errors="replace")))
         return row

@@ -8,9 +8,11 @@ char-step instead of re-running the whole locus DP over the prefix.
 
 A state is kept per typed byte, so ``backspace()`` restores the previous
 frontier without replay.  When the fixed-width frontier ever overflowed
-(state inexact), top-k is answered by the one-shot ``index.complete``
-path, which widens the search until exact — the JAX package's exactness
-contract, the same on every substrate.
+(state inexact), or the index holds uncompacted mutations, top-k is
+answered by the one-shot ``index.complete`` path, which widens the search
+until exact and merges the overlay — the JAX package's contract, the same
+on every substrate.  After a ``compact()`` or a ``reconfigure`` the
+session migrates at its next keystroke by replaying its prefix.
 """
 
 from __future__ import annotations
@@ -23,8 +25,12 @@ def resolve_topk(index, scores, sids, exact, prefix: bytes, k: int):
 
     When the result is inexact (frontier overflow or a failed beam bound)
     the widened one-shot ``index.complete`` path recovers exactness from
-    the raw prefix."""
-    if not bool(exact):
+    the raw prefix — the one exactness contract of the sequential
+    :class:`Session` and the scheduler's demux.  Pending mutations take
+    the same route: the session's top-k sees only the base epoch's
+    tables, so the overlay-merged one-shot path answers from the raw
+    prefix until the next ``compact()``."""
+    if getattr(index, "has_mutations", False) or not bool(exact):
         return index.complete([bytes(prefix)], k=k)[0]
     return index._decode_row(scores, sids)
 
@@ -53,9 +59,10 @@ class Session:
     def _sync_epoch(self) -> None:
         """Migrate onto the index's current epoch.
 
-        After a ``reconfigure`` the session fns hold closures over the
-        previous config, so refetch them and re-derive the whole per-char
-        state history by replaying the retained prefix."""
+        After a swap (``compact``) or a ``reconfigure`` the session fns
+        hold closures over the previous epoch's tensors and config, so
+        refetch them and re-derive the whole per-char state history by
+        replaying the retained prefix."""
         if self._epoch == self.index.epoch:
             return
         self._init, self._advance, self._topk = \

@@ -60,16 +60,16 @@ def widen(table: torch.Tensor, idx) -> torch.Tensor:
 
 def _rank(ids: torch.Tensor, nodes: torch.Tensor):
     """Position of each node in a sorted id table: (clipped rank int64,
-    exact bool).  An empty table matches nothing."""
+    exact bool).  An empty table matches nothing.  The lower bound is one
+    ``torch.searchsorted`` (the fixed-iteration ``lower_bound`` would
+    launch a handful of kernels per halving)."""
     size = int(ids.shape[0])
     if size == 0:
         return (torch.zeros(nodes.shape, dtype=torch.int64,
                             device=nodes.device),
                 torch.zeros(nodes.shape, dtype=torch.bool,
                             device=nodes.device))
-    pos = lower_bound(ids, torch.zeros_like(nodes), torch.full_like(nodes,
-                                                                   size),
-                      nodes, iters_for(size))
+    pos = torch.searchsorted(ids, nodes.to(ids.dtype).contiguous())
     rc = pos.clamp(0, size - 1)
     return rc, (pos < size) & (ids[rc] == nodes)
 

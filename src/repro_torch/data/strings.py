@@ -164,3 +164,72 @@ def make_workload(ds: StringDataset, n_queries: int, seed: int = 0,
         if q:
             queries.append(q)
     return queries
+
+
+def make_zipf_queries(ds: StringDataset, n_queries: int, seed: int = 0,
+                      a: float = 1.3, min_len: int = 2,
+                      max_len: int = 24) -> list[str]:
+    """Zipf-skewed prefix queries: real autocomplete traffic concentrates
+    on hot strings, so strings are drawn by Zipf rank (parameter ``a``)
+    instead of uniformly; rule rewriting and prefix truncation match
+    :func:`make_workload`."""
+    rng = np.random.default_rng(seed)
+    inv = {}
+    for lhs, rhs in ds.rules:
+        inv.setdefault(rhs, []).append(lhs)
+    rhs_keys = sorted(inv)
+    n_strings = len(ds.strings)
+    queries = []
+    while len(queries) < n_queries:
+        rank = min(int(rng.zipf(a)), n_strings) - 1
+        s = ds.strings[rank]
+        for _ in range(2):
+            hits = [r for r in rhs_keys if r in s]
+            if not hits or rng.random() < 0.3:
+                break
+            r = hits[int(rng.integers(0, len(hits)))]
+            lhs = inv[r][int(rng.integers(0, len(inv[r])))]
+            i = s.find(r)
+            s = s[:i] + lhs + s[i + len(r):]
+        ln = int(rng.integers(min_len, max_len + 1))
+        q = s[:ln].rstrip()
+        if q:
+            queries.append(q)
+    return queries
+
+
+def make_keystroke_events(ds: StringDataset, n_sessions: int,
+                          n_queries: int, seed: int = 0, a: float = 1.3,
+                          min_len: int = 2, max_len: int = 24
+                          ) -> list[tuple[int, int]]:
+    """Interleaved multi-session keystroke stream for the serving layer.
+
+    Zipf-skewed queries (:func:`make_zipf_queries`) are dealt to
+    ``n_sessions`` concurrent typists balancing total keystroke count
+    (each query goes to the least-loaded session, so streams end together
+    instead of staggering with the heavy-tailed query lengths), each
+    query preceded by a session reset; the per-session typing is then
+    interleaved by a random schedule, so at any instant several sessions
+    have a keystroke in flight — the shape continuous batching coalesces.
+
+    Returns ``[(session, char), ...]`` where ``char`` is a byte value and
+    ``-1`` marks a session reset (a new query starts).
+    """
+    rng = np.random.default_rng(seed)
+    queries = make_zipf_queries(ds, n_queries, seed=seed + 1, a=a,
+                                min_len=min_len, max_len=max_len)
+    pending: list[list[int]] = [[] for _ in range(n_sessions)]
+    for q in queries:
+        s = min(range(n_sessions), key=lambda i: len(pending[i]))
+        pending[s].append(-1)
+        pending[s].extend(q.encode())
+    events = []
+    cursors = [0] * n_sessions
+    live = [s for s in range(n_sessions) if pending[s]]
+    while live:
+        s = live[int(rng.integers(0, len(live)))]
+        events.append((s, pending[s][cursors[s]]))
+        cursors[s] += 1
+        if cursors[s] == len(pending[s]):
+            live.remove(s)
+    return events

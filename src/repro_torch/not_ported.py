@@ -7,9 +7,6 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "scheduler": (5, "the keystroke scheduler (batching=True)"),
-    "reranking": (5, "reranking"),
-    "mutations": (6, "online mutations"),
     "sharding": (8, "sharded indexes"),
 }
 

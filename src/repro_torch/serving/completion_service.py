@@ -1,20 +1,25 @@
 """CompletionService: the paper's technique as the serving front-end.
 
 Wraps a local completion index and answers batches of queries through
-:meth:`CompletionService.complete`, keeping per-request latency stats.
+:meth:`CompletionService.complete`, keeping per-request latency stats;
+optionally re-ranks the trie's candidates with any callable (a model's
+log-prob, a user affinity) — the trie proposes ``overfetch * k`` cheaply,
+the reranker spends its work on those alone.
+
 ``open_session`` exposes the incremental per-keystroke path: a
 :class:`ServiceSession` advances the index's resumable locus frontier one
 char at a time and folds per-keystroke latency into the service stats.
-The continuous-batching scheduler (``batching=True``, ``submit``) and
-reranking are not ported yet (ROADMAP.md §1 item 5) and raise.
+With ``batching=True`` the service owns a
+:class:`~repro_torch.serving.scheduler.KeystrokeScheduler` and sessions
+ride shared fixed-shape micro-batches instead of paying one advance and
+one phase 2 per keystroke — the same results, one batched advance and
+top-k per coalesced block.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-
-from repro_torch.not_ported import not_ported
 
 LATENCY_WINDOW = 4096  # bound per-request/per-keystroke latency history
 
@@ -83,58 +88,102 @@ class ServiceStats:
 
 
 class ServiceSession:
-    """One user's typing stream through the service (keystroke stats)."""
+    """One user's typing stream through the service (stats + reranking)."""
 
     def __init__(self, service: "CompletionService", k: int):
         self.service = service
         self.k = k
-        self._session = service.index.session(k=k)
+        fetch_k = k * (service.overfetch if service.reranker else 1)
+        if service.batching:
+            # batched sessions share the scheduler's slab; a keystroke's
+            # latency (queue wait + flush + demux) is recorded by the
+            # scheduler's demux hook, not a wall timer here
+            self._session = service._scheduler().open(k=fetch_k)
+            self._timed = False
+        else:
+            self._session = service.index.session(k=fetch_k)
+            self._timed = True
 
     @property
     def prefix(self) -> str:
         return self._session.prefix
 
-    def submit(self, char, want_topk: bool = True):
-        raise not_ported("scheduler")
+    def submit(self, char: int | bytes | str, want_topk: bool = True):
+        """Non-blocking enqueue of one keystroke (batching mode only);
+        returns the scheduler's Ticket.  Callers use it to keep many
+        sessions in flight so their keystrokes coalesce."""
+        if not self.service.batching:
+            raise RuntimeError(
+                "submit() needs a batching service; construct "
+                "CompletionService(..., batching=True) or use type()")
+        return self._session.submit(char, want_topk=want_topk)
 
     def type(self, text: str | bytes) -> list[tuple[int, str]]:
-        """Feed keystrokes one at a time, each timed until its top-k is on
-        the host; returns the top-k for the new prefix."""
+        """Feed keystrokes one at a time (unbatched: each timed until its
+        top-k is on the host); returns the (re-ranked) top-k for the new
+        prefix."""
         data = text.encode() if isinstance(text, str) else bytes(text)
         if not data:
             results = self._session.topk()
         for i in range(len(data)):
             t0 = time.perf_counter()
             results = self._session.type(data[i:i + 1])
-            self.service.stats.record_keystroke(time.perf_counter() - t0)
+            if self._timed:
+                self.service.stats.record_keystroke(
+                    time.perf_counter() - t0)
+        if self.service.reranker is not None:
+            results = self.service.reranker(self.prefix, results)
         return results[:self.k]
 
     def backspace(self, n: int = 1) -> list[tuple[int, str]]:
-        return self._session.backspace(n)[:self.k]
+        results = self._session.backspace(n)
+        if self.service.reranker is not None:
+            results = self.service.reranker(self.prefix, results)
+        return results[:self.k]
 
     def reset(self) -> None:
         self._session.reset()
 
     def close(self) -> None:
-        """Release the session (nothing to release without a scheduler)."""
+        """Release the session's scheduler lane (no-op when unbatched)."""
+        close = getattr(self._session, "close", None)
+        if close is not None:
+            close()
 
 
 class CompletionService:
-    def __init__(self, index, reranker=None, *, batching: bool = False):
-        """index: a :class:`repro_torch.api.index.CompletionIndex`."""
-        if reranker is not None:
-            raise not_ported("reranking")
-        if batching:
-            raise not_ported("scheduler")
+    def __init__(self, index, reranker=None, overfetch: int = 4, *,
+                 batching: bool = False, block: int = 8,
+                 max_wait_ms: float = 2.0, max_queue: int | None = None):
+        """index: a :class:`repro_torch.api.index.CompletionIndex`.
+        reranker: callable(query, [(score, string)]) -> [(score, string)].
+        overfetch: fetch overfetch*k trie candidates before reranking.
+        batching: route per-keystroke sessions through the continuous-
+            batching scheduler (block/max_wait_ms/max_queue are its
+            micro-batch width, latency budget and admission bound)."""
         self.index = index
+        self.reranker = reranker
+        self.overfetch = overfetch
+        self.batching = batching
+        self.block = block
+        self.max_wait_ms = max_wait_ms
+        self.max_queue = max_queue
         self.stats = ServiceStats()
+        self.scheduler = None
 
     def complete(self, queries: list[str], k: int = 10):
-        """Top-k (score, string) pairs per query.  Every request of a
+        """Top-k (score, string) pairs per query (re-ranked from an
+        over-fetch when the service has a reranker).  Every request of a
         synchronous batch waits the whole batch, so each records the batch
         wall time (which ends after the results are back on the host)."""
         t0 = time.perf_counter()
-        results = self.index.complete(queries, k=k)
+        fetch_k = k * (self.overfetch if self.reranker else 1)
+        results = self.index.complete(queries, k=fetch_k)
+        if self.reranker is not None:
+            results = [self.reranker(q, r)[:k]
+                       for q, r in zip(queries, results)]
+        else:
+            results = [r[:k] for r in results]
         dt = time.perf_counter() - t0
         self.stats.n_queries += len(queries)
         self.stats.total_seconds += dt
@@ -146,7 +195,56 @@ class CompletionService:
     def reset_stats(self) -> None:
         """Discard the accounting (e.g. after a warm-up batch)."""
         self.stats = ServiceStats()
+        if self.scheduler is not None:
+            self.scheduler.on_keystroke = self.stats.record_keystroke
+
+    def _scheduler(self):
+        if self.scheduler is None:
+            from repro_torch.serving.scheduler import KeystrokeScheduler
+
+            self.scheduler = KeystrokeScheduler(
+                self.index, block=self.block, max_wait_ms=self.max_wait_ms,
+                max_queue=self.max_queue,
+                on_keystroke=self.stats.record_keystroke)
+        return self.scheduler
+
+    def pump(self) -> int:
+        """Fire due scheduler flushes (batching-mode event loops call
+        this); returns the number of flushes fired."""
+        return self._scheduler().pump() if self.batching else 0
+
+    def poll(self) -> int:
+        """Like :meth:`pump`, and also settles the scheduler's pipelined
+        result stash once the queue is empty, so the last flush's tickets
+        resolve even when no further keystroke arrives.  Event loops
+        should prefer it to ``pump``."""
+        return self._scheduler().poll() if self.batching else 0
+
+    def flush(self) -> None:
+        """Force one partial-block flush (e.g. to make room after a
+        SchedulerOverloaded rejection without collapsing the queue)."""
+        if self.batching and self.scheduler is not None:
+            self.scheduler.flush()
+
+    def drain(self) -> None:
+        """Flush the scheduler until no keystroke is in flight."""
+        if self.batching and self.scheduler is not None:
+            self.scheduler.drain()
+
+    def compact(self, handoff_path: str | None = None
+                ) -> "CompletionService":
+        """Fold the index's pending mutations into a fresh index and swap
+        it in under the live sessions.
+
+        The swap bumps the index epoch; sequential sessions and the
+        scheduler's slab migrate at their next keystroke boundary by
+        replaying their retained prefixes, so no open session drops a
+        keystroke or loses its prefix.  ``handoff_path`` routes the swap
+        through the npz container (the restart-without-downtime shape)."""
+        self.index.compact(handoff_path)
+        return self
 
     def open_session(self, k: int = 10) -> ServiceSession:
-        """Start a stateful per-keystroke session."""
+        """Start a stateful per-keystroke session; with ``batching=True``
+        it rides the service's shared micro-batches."""
         return ServiceSession(self, k)
