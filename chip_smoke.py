@@ -76,7 +76,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    scheduler on USPS ET 1M with ``cache_k=16`` (dense and packed), without
    a cache, and on USPS plain 100k with ``cache_k=16``: ``serve_zipf``'s
    workload (``make_keystroke_events``, 8 sessions, seed 1, cut from 64
-   queries to 32 for time; block 8, ``max_wait_ms=2.0``) replayed a
+   queries to 16 for time; block 8, ``max_wait_ms=2.0``) replayed a
    keystroke at a time through ``open_session`` and through
    ``CompletionService(batching=True)`` after a warm-up of the first 64
    events, every keystroke's answer equal both ways, every flush's
@@ -97,7 +97,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    top-10s, then the 512-query batch workload against the unmutated run
    (p50/p99; answers equal on both substrates on the first 128 queries,
    no deleted string shown);
-5. typing sessions, save and load, multi-term completion: the first 32
+4c. the sharded index and the serving launcher: (a) USPS ET 1M over 16
+   shards with ``cache_k=16``, dense (the repo's sharded deployment of
+   USPS, ``src/repro/configs/autocomplete.py``), its shards built in
+   eight worker processes on the host in phase 2, then wrapped with
+   ``ShardedCompletionIndex.from_shards``: the 512-query batch workload
+   through ``CompletionService.complete`` (each batch one ``locus_dp``
+   and one ``locus_topk_merge`` a shard and one ``topk_select`` at [64,
+   160], no plain version), its first 128 answers equal to the torch
+   substrate's over the same stacked tables, its scores equal to phase 4's
+   unsharded USPS ET 1M ``cache_k=16`` row for row (strings may differ
+   only in a run of equal scores that k cuts), and so at k = 20 on 64
+   queries (the beam on every shard); µs/completion, p50/p99, bytes on the
+   card with the stacking's padding, the build's seconds, inexact shard
+   answers; (b) the mesh path at world size 1 over NCCL (a (1, 1)
+   DeviceMesh) over the unsharded USPS ET 1M ``cache_k=16`` index as its
+   one shard, its answers equal to the local mode's; (c) DBLP TT over 3
+   shards saved and loaded back onto the card, answers equal; (d) the
+   launcher's ``main`` in process: a batch run at its default 100,000
+   strings that saves its container, then keystroke, zipf and churn runs
+   that load it (16 queries each for time; zipf one timed repeat, churn a
+   mutation batch every 32 events): each JSON line printed, zipf
+   bit-identical with no fallback, churn verified with no keystroke
+   lost, the batch hit rate equal to ``complete``'s on the loaded
+   container;
+5. typing sessions, save and load, multi-term completion: the first 16
    queries of the batch workload typed one byte at a time through
    ``CompletionService.open_session(k=10)`` (one warm-up query, a
    ``reset`` between queries) on USPS ET 1M with ``cache_k=16`` (dense and
@@ -133,7 +157,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    packed run's loci (the gap is the rank lookups' cost); ``trie_walk``
    so too, with its loci entry and the rule-free ``walk_batch`` it
    serves; print one JSON line of kernels (their launches summed over
-   phases 4 and 5), the card, and, last, the device line.  The profiler's
+   phases 4, 4b, 4c and 5), the card, and, last, the device line;
+   ``topk_select`` also at the cross-shard merge's [64, 160].  The profiler's
    traces of phase 4's paths run at the end of phase 4, ahead of phase
    5's: ``candidate_topk``'s two kernels apart, the rule-free
    ``walk_batch`` (which must be one kernel a call) and one batch of each
@@ -149,6 +174,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import subprocess
 import sys
 import tempfile
@@ -177,25 +203,40 @@ WIDEST = dict(frontier=256, gens=3072, max_steps=32768)  # third retry round
 TIE_SCORES = ("equal", "three")   # every score 7; scores from {5, 9, 13}
 PAPER_B_PER_STRING = (160, 200)   # the paper's space claim
 # typing sessions: queries typed per path, and of those held keystroke by
-# keystroke against complete and the torch substrate's session; on the
-# path without a cache, the torch session's plain beam (~0.17 s a
-# keystroke on an H100 host) holds fewer
-SESSION_QUERIES = (32, 32)
+# keystroke against complete and the torch substrate's session (cut from
+# 32 to 16 for time when phase 4c came); on the path without a cache, the
+# torch session's plain beam (~0.17 s a keystroke on an H100 host) holds
+# fewer
+SESSION_QUERIES = (16, 16)
 SESSION_QUERIES_TORCH_BEAM = 8
 # live serving: serve_zipf's and serve_churn's defaults
 # (src/repro/launch/serve.py) — 8 sessions of 64 Zipf queries, block 8,
 # a 2 ms latency budget, a mutation batch every 64 events, compaction at a
-# backlog of 48 — with the scheduler's replays cut to 32 queries for time
+# backlog of 48 — with the scheduler's replays cut to 16 queries for time
 # (the churn keeps 64: its compaction needs the backlog), the first 64
 # events a warm-up; 16 inserts, deletes and re-scores on USPS ET 1M, the
 # torch substrate holding the first 128 queries of the mutated batch
 # (its plain packed beam at k = 42)
 SERVE_SESSIONS, SERVE_BLOCK, SERVE_WAIT_MS = 8, 8, 2.0
-SERVE_QUERIES, CHURN_QUERIES = 32, 64
+SERVE_QUERIES, CHURN_QUERIES = 16, 64
 SERVE_WARMUP_EVENTS = 64
 CHURN_EVERY, COMPACT_AT = 64, 48
 N_MUTATE = 16
 N_MUTATED_TORCH = 128
+# the sharded index at the repo's own sharded deployment of USPS
+# (src/repro/configs/autocomplete.py: 16 shards, cache_k=16), its shards
+# built in a worker process a core on the host; its beam pass (k = 20 >
+# cache_k) on the workload's first 64 queries, and the torch substrate
+# holding the first 128 of the batch workload
+SHARDS, SHARD_WORKERS = 16, 8
+SHARD_K_BEAM, SHARD_BEAM_QUERIES, SHARD_TORCH_QUERIES = 20, 64, 128
+DBLP_SHARDS = 3
+# the launcher's workloads in process (--n-strings at its default
+# 100,000): keystroke, zipf and churn cut from 512 queries to 16 for time,
+# zipf to one timed repeat, churn's mutation batches every 32 events (its
+# backlog then stays under --compact-at: one compaction, after the
+# stream; phase 4b compacts under live lanes)
+LAUNCH_QUERIES, LAUNCH_CHURN_EVERY = 16, 32
 # the multi-term build's corpus, cut from DBLP's 24,810 strings: its
 # synthesized rules grow fast with the corpus
 N_DBLP_MULTITERM = 1_000
@@ -219,6 +260,77 @@ MT_EXPECT = {
     b"t": [(60, "the new york times"), (30, "the giants"),
            (10, "times square")],
 }
+
+
+def build_shard_host(job):
+    """A worker process's shard of the sharded index: built on the host
+    (``device="cpu"``) and pickled to ``path`` as the parts
+    ``CompletionIndex.from_parts`` takes (a pipe back to the parent moves
+    ~0.14 GB/s, a file in the page cache several); returns the build's
+    start and end."""
+    strings, scores, rule_pairs, spec_kw, path = job
+    import pickle
+
+    import torch
+
+    import repro_torch as rt
+    from repro_torch.core.trie_build import make_rules
+
+    torch.set_num_threads(1)
+    t = time.time()
+    idx = rt.build_index(strings or [""], scores or [1],
+                         make_rules(rule_pairs), rt.IndexSpec(**spec_kw),
+                         device="cpu")
+    end = time.time()
+    with open(path, "wb") as f:
+        pickle.dump((idx.trie, idx.rule_trie, idx.rules, idx.strings,
+                     idx.scores, idx.cfg, idx.spec, idx.stats), f,
+                    protocol=5)
+    return t, end
+
+
+def build_shards(usps) -> tuple:
+    """The sharded cell's shards built by SHARD_WORKERS worker processes:
+    (their parts, the wall seconds, a line on how the builds overlapped)."""
+    import pickle
+
+    from repro_torch.core.distributed import shard_strings
+
+    t0 = time.time()
+    buckets = shard_strings(usps.strings, usps.scores, SHARDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / f"shard_{i}.pkl") for i in range(SHARDS)]
+        with multiprocessing.get_context("spawn").Pool(SHARD_WORKERS) as pool:
+            spans = pool.map(
+                build_shard_host,
+                [(b[0], b[1], usps.rules, dict(kind="et", cache_k=CACHE_K),
+                  path) for b, path in zip(buckets, paths)],
+                chunksize=1)
+        t_read = time.time()
+        parts = []
+        for path in paths:
+            with open(path, "rb") as f:
+                parts.append(pickle.load(f))
+    wall = time.time() - t0
+    edges = sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans])
+    now = most = 0
+    for _, step in edges:
+        now += step
+        most = max(most, now)
+    timeline = (f"{sum(b - a for a, b in spans):.1f} s of builds, the "
+                f"first starting {min(a for a, _ in spans) - t0:.1f} s "
+                f"and the last ending {max(b for _, b in spans) - t0:.1f} s "
+                f"in, at most {most} at once; read back in "
+                f"{time.time() - t_read:.1f} s")
+    return parts, wall, timeline
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def round_widths(cfg, r: int) -> dict:
@@ -508,6 +620,9 @@ def main() -> int:
     from repro_torch.kernels import (_build, beam_topk, candidate_topk,
                                      embedding_bag, locus_dp, locus_merge,
                                      ops, topk_select, trie_walk)
+    from repro_torch.launch.serve import (_replay_batched,
+                                          _replay_sequential, _submit_events)
+    from repro_torch.launch.serve import main as serve_main
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -592,6 +707,13 @@ def main() -> int:
     t = time.perf_counter()
     usps = make_usps(n_usps_et, seed=0)
     log(f"make_usps({n_usps_et}): {time.perf_counter() - t:.3f} s")
+    # phase 4c's shards, built before the other host builds: worker
+    # processes started beside them slowed them by as much as they took,
+    # and started late (a large parent) they overlapped little
+    shard_parts, shard_wall, shard_timeline = build_shards(usps)
+    builds["USPS ET 16 shards (workers' wall)"] = shard_wall
+    log(f"build USPS ET {SHARDS} shards cache_k=16 in {SHARD_WORKERS} "
+        f"worker processes: {shard_wall:.3f} s ({shard_timeline})")
     dblp_tt = build("DBLP", dblp, "tt")
     dblp_ht = build("DBLP", dblp, "ht")
     usps_plain = build("USPS", usps_small, "plain")
@@ -1344,48 +1466,6 @@ def main() -> int:
         record(c, *[k_name for k_name in counters if c[k_name] > 0],
                by_width=False)
 
-    def replay_sequential(service, events, n_sessions):
-        """One advance and one phase 2 per keystroke, each session typed
-        through its own ServiceSession (the launcher's pre-batching
-        shape)."""
-        sessions = [service.open_session(k=K) for _ in range(n_sessions)]
-        out = []
-        for s, c in events:
-            if c < 0:
-                sessions[s].reset()
-            else:
-                out.append(sessions[s].type(bytes([c])))
-        for sess in sessions:
-            sess.close()
-        return out
-
-    def replay_batched(service, events, n_sessions, churn=None):
-        """Keystrokes submitted without blocking so the sessions'
-        keystrokes coalesce; backpressure sheds load with one forced
-        flush, a session whose stream ends closes at once.  ``churn(i,
-        tickets)`` runs before event i.  The tickets, in submit order."""
-        remaining = [0] * n_sessions
-        for s, _ in events:
-            remaining[s] += 1
-        sessions = [service.open_session(k=K) for _ in range(n_sessions)]
-        tickets = []
-        for i, (s, c) in enumerate(events):
-            if churn is not None:
-                churn(i, tickets)
-            if c < 0:
-                sessions[s].reset()
-            else:
-                try:
-                    tickets.append(sessions[s].submit(c))
-                except rt.SchedulerOverloaded:
-                    service.flush()
-                    tickets.append(sessions[s].submit(c))
-            remaining[s] -= 1
-            if remaining[s] == 0:
-                sessions[s].close()
-        service.drain()
-        return tickets
-
     def no_sync_dispatch(sched):
         """Hold every flush's dispatch (advance, phase 2, the packed
         non-blocking copy) under CUDA's sync debug mode "error": a host
@@ -1447,8 +1527,8 @@ def main() -> int:
         bat = rt.CompletionService(idx, batching=True, block=SERVE_BLOCK,
                                    max_wait_ms=SERVE_WAIT_MS)
         warm = events[:SERVE_WARMUP_EVENTS]
-        replay_sequential(seq, warm, SERVE_SESSIONS)
-        replay_batched(bat, warm, SERVE_SESSIONS)
+        _replay_sequential(seq, warm, SERVE_SESSIONS, k=K)
+        _submit_events(bat, warm, SERVE_SESSIONS, k=K)
         sched = bat.scheduler
         no_sync_dispatch(sched)
         seq.reset_stats()
@@ -1457,13 +1537,12 @@ def main() -> int:
         torch.cuda.synchronize()
         reset_counts()
         t = time.perf_counter()
-        want = replay_sequential(seq, events, SERVE_SESSIONS)
+        want = _replay_sequential(seq, events, SERVE_SESSIONS, k=K)
         seq_s = time.perf_counter() - t
         c_seq = counts()
         reset_counts()
         t = time.perf_counter()
-        got = [tk.results for tk in replay_batched(bat, events,
-                                                   SERVE_SESSIONS)]
+        got = _replay_batched(bat, events, SERVE_SESSIONS, k=K)
         bat_s = time.perf_counter() - t
         c_bat = counts()
         st, n = sched.stats, len(want)
@@ -1575,7 +1654,8 @@ def main() -> int:
 
     reset_counts()
     t = time.perf_counter()
-    tickets = replay_batched(svc, events, SERVE_SESSIONS, churn_step)
+    tickets = _submit_events(svc, events, SERVE_SESSIONS, k=K,
+                             before=churn_step)
     churn_s = time.perf_counter() - t
     c_churn = counts()
     lost = sum(tk.results is None for tk in tickets)
@@ -1676,6 +1756,273 @@ def main() -> int:
         f"{sum(' zz' in s for s in shown)} inserted strings shown")
     del mut
     log(f"live serving done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 4c: the sharded index and the serving launcher ------------------
+    log(f"phase 4c at {time.perf_counter() - t_start:.1f} s")
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    # the cross-shard merges: (shape, k) of every topk_select call, and
+    # the last [B, S*k] inputs (timed in phase 6)
+    merge_shapes, merge_inputs = [], []
+    select = topk_select.topk_select
+
+    def recording_select(scores, payload, k):
+        merge_shapes.append((tuple(scores.shape), k))
+        merge_inputs[:] = [scores, payload]
+        return select(scores, payload, k)
+
+    def sharded_path(name, idx, queries, k, must, n_shards, n_check):
+        """``queries`` through ``CompletionService(idx).complete`` in
+        batches of B after one warm-up batch: per batch each shard's
+        ``must`` kernels once and one merge at [B, n_shards * k], no
+        plain version; the first ``n_check`` answers equal the torch
+        substrate's over the same stacked tables."""
+        batches = [queries[i:i + B] for i in range(0, len(queries), B)]
+        service = rt.CompletionService(idx)
+        service.complete(batches[0], k=k)            # warm-up
+        service.reset_stats()
+        torch.cuda.synchronize()
+        inexact = idx.inexact
+        reset_counts()
+        merge_shapes.clear()
+        topk_select.topk_select = recording_select
+        lat, results = [], []
+        for b in batches:
+            t = time.perf_counter()
+            results += service.complete(b, k=k)
+            lat.append((time.perf_counter() - t) * 1e3)
+        topk_select.topk_select = select
+        c = counts()
+        st, lat = service.stats, sorted(lat)
+        hits = sum(1 for r in results if r) / len(results)
+        log(f"sharded {name}: {st.n_queries} queries in {st.batches} "
+            f"batches of {B}, k={k}: "
+            f"{st.total_seconds / st.n_queries * 1e6:.1f} us/completion, "
+            f"batch p50 {lat[len(lat) // 2]:.3f} ms, p99 "
+            f"{lat[min(int(len(lat) * 0.99), len(lat) - 1)]:.3f} ms, hit "
+            f"rate {hits:.4f}, inexact shard answers "
+            f"{idx.inexact - inexact}, merges {sorted(set(merge_shapes))}, "
+            f"launches { {k_: v for k_, v in c.items() if k_ != 'widths' and v} }")
+        n_b = len(batches)
+        for k_name in must:
+            if c[k_name] != n_shards * n_b:
+                raise AssertionError(f"sharded {name}: {c[k_name]} "
+                                     f"{k_name} launches, not {n_shards} "
+                                     f"shards x {n_b} batches")
+        if c["topk_select"] != n_b or c["plain"] \
+                or set(merge_shapes) != {((B, n_shards * k), k)}:
+            raise AssertionError(f"sharded {name}: merges {merge_shapes}, "
+                                 f"launches {c}")
+        record_all(c)
+        if n_check:
+            cfg = idx.cfg
+            idx.cfg = replace(cfg, substrate="torch")
+            want = [r for i in range(0, n_check, B)
+                    for r in idx.complete(queries[i:i + B], k=k)]
+            idx.cfg = cfg
+            if results[:n_check] != want:
+                bad = [i for i, (x, y) in enumerate(zip(results, want))
+                       if x != y]
+                raise AssertionError(f"sharded {name}: cuda and torch "
+                                     f"substrates differ on queries "
+                                     f"{bad[:5]}")
+            log(f"  sharded {name}: cuda answers equal the torch "
+                f"substrate's ({n_check} queries)")
+        return results
+
+    def same_scores(name, got, want, k):
+        """Scores equal row for row; strings equal but inside a run of
+        equal scores that k cuts (shards break ties by shard, the
+        unsharded index by string)."""
+        bad, cut = [], 0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if [x for x, _ in g] != [x for x, _ in w]:
+                bad.append(i)
+                continue
+            for score in {x for x, _ in w}:
+                if sorted(y for x, y in g if x == score) != \
+                        sorted(y for x, y in w if x == score):
+                    if len(w) == k and score == w[-1][0]:
+                        cut += 1
+                    else:
+                        bad.append(i)
+        if bad:
+            raise AssertionError(f"sharded {name}: scores or strings differ "
+                                 f"from the unsharded index's on queries "
+                                 f"{bad[:5]}")
+        log(f"  sharded {name}: scores equal the unsharded index's on "
+            f"{len(got)} queries (strings differ in {cut} runs of equal "
+            "scores cut by k)")
+
+    # (a) USPS ET 1M over 16 shards, cache_k=16, dense, in one process
+    # (its shards built in phase 2; one after another they take ~150 s)
+    t = time.perf_counter()
+    shards = [rt.CompletionIndex.from_parts(
+        trie, rule_trie, rules, strings, scores, cfg, device=dev, spec=spec,
+        stats=stats)
+        for trie, rule_trie, rules, strings, scores, cfg, spec, stats
+        in shard_parts]
+    del shard_parts
+    sharded = rt.ShardedCompletionIndex.from_shards(shards)
+    torch.cuda.synchronize()
+    wrap_s = time.perf_counter() - t
+    n_usps = len(usps.strings)
+    log(f"sharded USPS ET ({n_usps} strings, {SHARDS} shards, cache_k=16): "
+        f"built in {SHARD_WORKERS} worker processes in {shard_wall:.1f} s "
+        f"wall ({shard_timeline}), onto the card and stacked "
+        f"in {wrap_s:.1f} s; strings a shard "
+        f"{min(len(x) for x in sharded.shard_strings)}-{sharded.stride}, "
+        f"empty shards {sum(sharded.empty)}; stacked tables "
+        f"{device_bytes(sharded)} B on the card = "
+        f"{device_bytes(sharded) / n_usps:.1f} B/string with the padding "
+        f"(unsharded {device_bytes(usps_et_c) / n_usps:.1f}; the shards' "
+        f"own tables {sum(device_bytes(x) for x in shards) / n_usps:.1f}), "
+        f"substrate {sharded.cfg.substrate}")
+    if sharded.cfg.substrate != "cuda" or not sharded.cfg.use_cache:
+        raise AssertionError(f"sharded USPS ET: config {sharded.cfg}")
+    workload = make_workload(usps, 512, seed=1)
+    got = sharded_path("USPS ET 16 shards cache_k=16", sharded, workload, K,
+                       ("locus_dp", "locus_topk_merge"), SHARDS,
+                       SHARD_TORCH_QUERIES)
+    same_scores("USPS ET 16 shards cache_k=16", got,
+                answers["USPS ET cache_k=16"], K)
+    shard_merge = list(merge_inputs)
+    # one sharded batch under the profiler: the device's busy share and
+    # its kernels by name
+    service = rt.CompletionService(sharded)
+    service.complete(workload[:B], k=K)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(BATCH_WINDOW):
+            service.complete(workload[:B], k=K)
+    log(f"profile sharded USPS ET 16 shards, one batch of {B}: "
+        + batch_trace(prof, "sharded USPS ET", ("locus_dp_kernel",
+                                                 "merge_warp",
+                                                 "topk_select_warp")))
+    beam_q = workload[:SHARD_BEAM_QUERIES]
+    got = sharded_path(f"USPS ET 16 shards k={SHARD_K_BEAM}", sharded,
+                       beam_q, SHARD_K_BEAM, ("locus_dp", "beam_topk"),
+                       SHARDS, SHARD_BEAM_QUERIES)
+    same_scores(f"USPS ET 16 shards k={SHARD_K_BEAM}", got,
+                usps_et_c.complete(beam_q, k=SHARD_K_BEAM), SHARD_K_BEAM)
+    log(f"  sharded USPS ET: {sharded.inexact} inexact shard answers in "
+        "all (returned without a retry)")
+    del sharded, shards, got
+    torch.cuda.empty_cache()
+    log(f"  (a) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (b) the mesh path at world size 1 over NCCL, USPS ET 1M cache_k=16
+    # as its one shard, against the local mode over the same shard
+    torch.cuda.set_device(dev.index or 0)
+    tdist.init_process_group("nccl", init_method="tcp://localhost:"
+                             f"{free_port()}", world_size=1, rank=0)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    t = time.perf_counter()
+    meshed = rt.ShardedCompletionIndex.from_shards([usps_et_c], mesh=mesh)
+    local1 = rt.ShardedCompletionIndex.from_shards([usps_et_c])
+    torch.cuda.synchronize()
+    log(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over "
+        f"{tdist.get_backend()}, world size {tdist.get_world_size()}: both "
+        f"wrappers of USPS ET cache_k=16 made in "
+        f"{time.perf_counter() - t:.1f} s")
+    got_mesh = sharded_path("USPS ET 1 shard over the mesh", meshed, workload,
+                            K, ("locus_dp", "locus_topk_merge"), 1, 0)
+    got_local = sharded_path("USPS ET 1 shard local", local1, workload, K,
+                             ("locus_dp", "locus_topk_merge"), 1, 0)
+    if got_mesh != got_local:
+        bad = [i for i, (x, y) in enumerate(zip(got_mesh, got_local))
+               if x != y]
+        raise AssertionError(f"mesh and local modes differ on queries "
+                             f"{bad[:5]}")
+    log(f"  mesh path: answers equal the local mode's ({len(got_mesh)} "
+        "queries)")
+    del meshed, local1, got_mesh, got_local
+    tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"  (b) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (c) save and load a small sharded index: DBLP TT over 3 shards
+    t = time.perf_counter()
+    dblp_sh = rt.ShardedCompletionIndex(
+        dblp.strings, dblp.scores, make_rules(dblp.rules),
+        n_shards=DBLP_SHARDS, kind="tt", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        dblp_sh.save(tmp)
+        save_s = time.perf_counter() - t
+        size = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        t = time.perf_counter()
+        loaded = rt.ShardedCompletionIndex.load(tmp, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    dq = make_workload(dblp, 512, seed=1)[:B]
+    reset_counts()
+    want = dblp_sh.complete(dq, k=K)
+    got = loaded.complete(dq, k=K)
+    c = counts()
+    if got != want or c["locus_dp"] != 2 * DBLP_SHARDS \
+            or c["beam_topk"] != 2 * DBLP_SHARDS or c["plain"]:
+        raise AssertionError(f"sharded DBLP TT: loaded answers "
+                             f"{'equal' if got == want else 'differ'}, "
+                             f"launches {c}")
+    record_all(c)
+    log(f"sharded DBLP TT ({len(dblp.strings)} strings, {DBLP_SHARDS} "
+        f"shards): build {build_s:.3f} s, save {save_s:.3f} s ({size} B), "
+        f"load onto the card {load_s:.3f} s; the loaded index answers "
+        f"{len(dq)} queries as the original")
+    del dblp_sh, loaded
+    log(f"  (c) done at {time.perf_counter() - t_start:.1f} s")
+
+    # (d) the serving launcher in process: a batch run that saves its
+    # container, then keystroke, zipf and churn runs that load it
+    launch_args = ["--arch", "autocomplete-usps"] + (
+        ["--n-strings", str(n_usps_plain)] if args.small else [])
+    launched_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "usps.npz")
+        reset_counts()
+        t = time.perf_counter()
+        launched_out["batch"] = serve_main(launch_args
+                                           + ["--save-index", path])
+        secs = {"batch": time.perf_counter() - t}
+        for w, extra in (("keystroke", []), ("zipf", ["--repeats", "1"]),
+                         ("churn", ["--churn-every",
+                                    str(LAUNCH_CHURN_EVERY)])):
+            t = time.perf_counter()
+            launched_out[w] = serve_main(
+                launch_args + ["--workload", w, "--load-index", path,
+                               "--queries", str(LAUNCH_QUERIES)] + extra)
+            secs[w] = time.perf_counter() - t
+        c = counts()
+        loaded = rt.CompletionIndex.load(path, device=dev)
+        lq = make_workload(usps_small, 512, seed=1)
+        rows = [r for i in range(0, len(lq), B)
+                for r in loaded.complete(lq[i:i + B], k=K)]
+        del loaded
+    hit = round(sum(1 for r in rows if r) / len(rows), 3)
+    zipf, churn_out = launched_out["zipf"], launched_out["churn"]
+    if not (zipf["bit_identical"] and zipf["fallbacks"] == 0
+            and churn_out["verified"] and churn_out["lost_keystrokes"] == 0
+            and launched_out["batch"]["hit_rate"] == hit
+            and all(o["substrate"] == "cuda"
+                    for o in launched_out.values())
+            and c["locus_dp"] > 0 and c["beam_topk"] > 0
+            and c["plain"] == 0):
+        raise AssertionError(f"launcher: {launched_out}, complete's hit "
+                             f"rate {hit}, launches {c}")
+    record_all(c)
+    log(f"launcher (python -m repro_torch.launch.serve {' '.join(launch_args)}"
+        f"; keystroke, zipf and churn at --queries {LAUNCH_QUERIES}, zipf "
+        f"--repeats 1, churn --churn-every {LAUNCH_CHURN_EVERY}): seconds "
+        f"{ {w: round(x, 1) for w, x in secs.items()} }; zipf bit "
+        "identical, 0 fallbacks; churn verified, 0 lost keystrokes; the "
+        f"batch hit rate {hit} equals complete's on the loaded container; "
+        f"launches { {k_: v for k_, v in c.items() if k_ != 'widths' and v} }")
+    log(f"sharding and launcher done at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 5: typing sessions, save and load, multi-term completion ---------
     log(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
@@ -2150,6 +2497,35 @@ def main() -> int:
                 row[pre + "ms"] = b2b
             row[pre + "graph_ms"] = g_ms
             row[pre + "host_us"] = h_us
+    # topk_select at the cross-shard merge's shape (phase 4c (a): [B,
+    # 16 * k] of the 16 shards' answers)
+    ms_s, ms_p = shard_merge
+
+    def shard_merge_library():
+        top = torch.topk(ms_s, K, dim=1)
+        return top.values, torch.gather(ms_p, 1, top.indices)
+
+    m_bound, m_by = bound(ms_s.numel() * 8 + B * K * 8, ms_s.numel())
+    m_row = {"shape": list(ms_s.shape),
+             "ms": cuda_ms(lambda: topk_select.topk_select(ms_s, ms_p, K), 20),
+             "plain_ms": cuda_ms(lambda: topk_select.topk_select_plain(
+                 ms_s, ms_p, K), 3),
+             "library_ms": cuda_ms(shard_merge_library, 20),
+             "bound_ms": m_bound, "bound_by": m_by}
+    m_row["graph_ms"], why = graph_ms(
+        lambda: topk_select.topk_select(ms_s, ms_p, K), 20)
+    m_row["host_us"] = host_us(
+        lambda: topk_select.topk_select(ms_s, ms_p, K), 1000)
+    m_row["library_graph_ms"], _ = graph_ms(shard_merge_library, 20)
+    next(r for r in rows if r["name"] == "topk_select")["shard_merge"] = m_row
+    log(f"time topk_select at the cross-shard merge {list(ms_s.shape)}: "
+        f"{m_row['ms']:.4f} ms back to back, "
+        + (f"{m_row['graph_ms']:.4f} ms in a CUDA graph" if why is None
+           else f"not measured in a CUDA graph ({why})")
+        + f", host {m_row['host_us']:.2f} us a call, plain "
+        f"{m_row['plain_ms']:.4f} ms, library {m_row['library_ms']:.4f} ms "
+        f"(graph {m_row['library_graph_ms']}), bound {m_bound:.6f} ms "
+        f"({m_by})")
     for e in (1, 2):
         for name, tt, cfg in (("locus_dp", t_et, cfg_et),
                               ("locus_dp_packed", t_etp, cfg_etp)):

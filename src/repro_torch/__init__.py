@@ -2,12 +2,14 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 layout and names.  Entry points (:func:`build_index`, :func:`load_index`,
-:class:`CompletionService`) run on the CUDA device unless the caller passes
-``device="cpu"``.
+:class:`ShardedCompletionIndex`, :class:`CompletionService`) run on the
+CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from repro_torch.api import (CompletionIndex, IndexSpec, Session,
                              build_index, load_index)
+from repro_torch.core.distributed import (ShardedCompletionIndex,
+                                          UnsupportedOnShardedIndex)
 from repro_torch.serving import (BatchSession, BatchStats, CompletionService,
                                  KeystrokeScheduler, SchedulerOverloaded,
                                  ServiceSession, ServiceStats, Ticket)
@@ -15,4 +17,5 @@ from repro_torch.serving import (BatchSession, BatchStats, CompletionService,
 __all__ = ["BatchSession", "BatchStats", "CompletionIndex",
            "CompletionService", "IndexSpec", "KeystrokeScheduler",
            "SchedulerOverloaded", "ServiceSession", "ServiceStats",
-           "Session", "Ticket", "build_index", "load_index"]
+           "Session", "ShardedCompletionIndex", "Ticket",
+           "UnsupportedOnShardedIndex", "build_index", "load_index"]

@@ -5,8 +5,7 @@ cache depth, on-device layout) and the static engine widths.  The per-kind
 rule-partitioning policies (``tt`` / ``et`` / ``ht`` / ``plain`` /
 ``multiterm``) register themselves in a builder registry, and a kind that
 derives rules from the corpus registers a rule synthesizer beside it
-(:mod:`repro_torch.api.build`).  Options the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item.
+(:mod:`repro_torch.api.build`).
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ from typing import Callable
 import numpy as np
 
 from repro_torch.core import trie_build as tb
-from repro_torch.not_ported import not_ported
 
 
 @dataclass(frozen=True)
@@ -96,7 +94,21 @@ class IndexSpec:
         return self
 
     def validate_sharded(self) -> "IndexSpec":
-        raise not_ported("sharding")
+        """Validate for use across ``ShardedCompletionIndex`` shards.
+
+        The packed layout cannot be stacked: shard stacking pads every
+        table to the widest shard, which breaks the packed side tables'
+        sorted-rank invariants.  Rejecting the spec here surfaces the
+        problem at construction time with the workaround, instead of a
+        ``NotImplementedError`` deep in ``stack_shards``."""
+        self.validate()
+        if self.compression != "none":
+            raise ValueError(
+                f"compression={self.compression!r} is unsupported on "
+                f"sharded indexes: stacking pads the packed side tables "
+                f"and breaks their sorted-rank invariants. Build shards "
+                f"with compression='none'")
+        return self
 
     def replace(self, **kw) -> "IndexSpec":
         return dataclasses.replace(self, **kw)

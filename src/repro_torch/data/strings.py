@@ -233,3 +233,6 @@ def make_keystroke_events(ds: StringDataset, n_sessions: int,
         if cursors[s] == len(pending[s]):
             live.remove(s)
     return events
+
+
+DATASETS = {"dblp": make_dblp, "usps": make_usps, "sprot": make_sprot}

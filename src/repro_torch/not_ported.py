@@ -7,11 +7,12 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "sharding": (8, "sharded indexes"),
+    "arch": (12, "the LM, recsys and GNN archs (their models, training and "
+                 "serving)"),
 }
 
 
 def not_ported(feature: str) -> NotImplementedError:
     item, what = _ITEMS[feature]
     return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md §1 item {item}")
+        f"{what} are not ported yet; see ROADMAP.md §1 item {item}")

@@ -1,10 +1,10 @@
 """CompletionService: the paper's technique as the serving front-end.
 
-Wraps a local completion index and answers batches of queries through
-:meth:`CompletionService.complete`, keeping per-request latency stats;
-optionally re-ranks the trie's candidates with any callable (a model's
-log-prob, a user affinity) — the trie proposes ``overfetch * k`` cheaply,
-the reranker spends its work on those alone.
+Wraps a (sharded or local) completion index and answers batches of
+queries through :meth:`CompletionService.complete`, keeping per-request
+latency stats; optionally re-ranks the trie's candidates with any
+callable (a model's log-prob, a user affinity) — the trie proposes
+``overfetch * k`` cheaply, the reranker spends its work on those alone.
 
 ``open_session`` exposes the incremental per-keystroke path: a
 :class:`ServiceSession` advances the index's resumable locus frontier one
@@ -155,7 +155,9 @@ class CompletionService:
     def __init__(self, index, reranker=None, overfetch: int = 4, *,
                  batching: bool = False, block: int = 8,
                  max_wait_ms: float = 2.0, max_queue: int | None = None):
-        """index: a :class:`repro_torch.api.index.CompletionIndex`.
+        """index: a :class:`repro_torch.api.index.CompletionIndex` (or a
+            :class:`~repro_torch.core.distributed.ShardedCompletionIndex`,
+            which serves batches only).
         reranker: callable(query, [(score, string)]) -> [(score, string)].
         overfetch: fetch overfetch*k trie candidates before reranking.
         batching: route per-keystroke sessions through the continuous-
@@ -241,10 +243,27 @@ class CompletionService:
         replaying their retained prefixes, so no open session drops a
         keystroke or loses its prefix.  ``handoff_path`` routes the swap
         through the npz container (the restart-without-downtime shape)."""
-        self.index.compact(handoff_path)
+        compact = getattr(self.index, "compact", None)
+        if not callable(compact):
+            from repro_torch.core.distributed import UnsupportedOnShardedIndex
+            raise UnsupportedOnShardedIndex(
+                f"compact() needs a local CompletionIndex; "
+                f"{type(self.index).__name__} has no mutation overlay — "
+                f"mutate and compact the per-shard indexes instead")
+        compact(handoff_path)
         return self
 
     def open_session(self, k: int = 10) -> ServiceSession:
         """Start a stateful per-keystroke session; with ``batching=True``
-        it rides the service's shared micro-batches."""
+        it rides the service's shared micro-batches.  Needs an index with
+        the session entry points (a local
+        :class:`~repro_torch.api.index.CompletionIndex`)."""
+        if not callable(getattr(self.index, "session", None)) or \
+                not callable(getattr(self.index, "_slab_fns", None)):
+            from repro_torch.core.distributed import UnsupportedOnShardedIndex
+            raise UnsupportedOnShardedIndex(
+                f"per-keystroke sessions need a local CompletionIndex; "
+                f"{type(self.index).__name__} does not support them yet "
+                f"(sharded sessions would need a resumable cross-shard "
+                f"frontier — use complete() for batch lookups instead)")
         return ServiceSession(self, k)

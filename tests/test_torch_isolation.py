@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, runs
 on the CUDA device unless told otherwise, and raises on every option
-outside the ported slices (sharding)."""
+outside the ported slices (the LM, recsys and GNN archs)."""
 
 import os
 import pkgutil
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import repro_torch as rt
+from repro_torch.configs import get_arch
 from repro_torch.core.engine.substrate import resolve_substrate
 from repro_torch.core.trie_build import make_rules
 
@@ -92,7 +93,7 @@ def test_auto_substrate_follows_the_device():
 
 
 SURFACES = [
-    ("sharded", lambda i: i.spec.validate_sharded()),
+    ("arch", lambda i: get_arch("qwen2.5-14b")),
 ]
 
 
@@ -114,6 +115,7 @@ def test_no_fallback_between_kernel_and_plain_version():
                 "core/engine/locus.py", "core/engine/beam.py",
                 "core/engine/packed.py", "core/engine/cached.py",
                 "core/engine/incremental.py", "core/engine/overlay.py",
-                "api/index.py", "api/session.py", "serving/scheduler.py"):
+                "api/index.py", "api/session.py", "serving/scheduler.py",
+                "core/distributed.py", "launch/serve.py"):
         text = (ROOT / "src" / "repro_torch" / mod).read_text()
         assert "try:" not in text, mod

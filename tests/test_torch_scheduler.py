@@ -31,6 +31,8 @@ from repro.launch.serve import _replay_batched as jax_replay_batched
 from repro_torch.core import engine as eng
 from repro_torch.core.trie_build import make_rules
 from repro_torch.data import strings as port_strings
+from repro_torch.launch.serve import _replay_batched as replay_batched
+from repro_torch.launch.serve import _replay_sequential as replay_sequential
 
 PAPER = (["andrew pavlo", "andrew parker", "andrew packard",
           "william smith", "bill of rights"], [50, 40, 30, 20, 10],
@@ -52,46 +54,6 @@ class FakeClock:
 
     def __call__(self) -> float:
         return self.t
-
-
-def replay_sequential(svc, events, n_sessions, k=10):
-    """One advance and one phase 2 per keystroke (the launcher's
-    pre-batching serving shape)."""
-    sessions = [svc.open_session(k=k) for _ in range(n_sessions)]
-    out = []
-    for s, c in events:
-        if c < 0:
-            sessions[s].reset()
-        else:
-            out.append(sessions[s].type(bytes([c])))
-    for sess in sessions:
-        sess.close()
-    return out
-
-
-def replay_batched(svc, events, n_sessions, k=10):
-    """Keystrokes submitted without blocking so concurrent sessions
-    coalesce; backpressure sheds load with one forced flush, and a session
-    whose stream ends closes at once."""
-    remaining = [0] * n_sessions
-    for s, _ in events:
-        remaining[s] += 1
-    sessions = [svc.open_session(k=k) for _ in range(n_sessions)]
-    tickets = []
-    for s, c in events:
-        if c < 0:
-            sessions[s].reset()
-        else:
-            try:
-                tickets.append(sessions[s].submit(c))
-            except rt.SchedulerOverloaded:
-                svc.flush()
-                tickets.append(sessions[s].submit(c))
-        remaining[s] -= 1
-        if remaining[s] == 0:
-            sessions[s].close()
-    svc.drain()
-    return [t.results for t in tickets]
 
 
 @pytest.fixture(scope="module")
