@@ -7,9 +7,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. print the card (``nvidia-smi``), the torch and CUDA versions, and build
    the hand-written kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all at once; ``-Xptxas -v`` printed per source);
-2. build the indexes.  USPS ET at 1,000,000 strings (the paper's size,
-   seed 0) is built once; its cached (``cache_k=16``) and packed
+   ``nvcc`` per source, all at once; ``-Xptxas -v`` printed per source)
+   once phase 2's worker processes have at most two jobs left;
+2. build the indexes, every host build in eight spawned worker processes
+   (results through files, their large arrays mapped on read; each index
+   onto the card as it lands).  USPS ET at 1,000,000 strings (the paper's
+   size, seed 0) is built once; its cached (``cache_k=16``) and packed
    (``compression="packed"``) variants are derived from the same host trie
    by the build's own later steps (the top-K cache, then the compressed
    layout), so the 1M host build is paid once;
@@ -64,7 +67,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    reconfigured to ``edit_budget=1`` without a rebuild, and the dense one
    with the beam at ``edit_budget=2``; then the off-path ``ops`` entry
    points (``candidate_topk`` at the retrieval shape, ``embedding_bag``
-   on the ragged batch of 512 bags).  Every kernel of a path must launch
+   on the ragged batch of 512 bags); then USPS ET 1M's compile cache
+   (hits, misses and evictions over the phase, equal to a replay of the
+   keys it was asked for) and the ``ops`` wrappers under ``repro``'s
+   names (``trie_walk``, ``locus_walk``, ``beam_topk``, ``topk_select``,
+   ``cached_topk_merge``, ``cached_topk_merge_packed``) on the workload's
+   first batch of USPS ET 1M (dense, packed, with and without the cache)
+   and USPS plain 100k: each launching its kernel, bit for bit equal to
+   the ``"torch"`` substrate's plain version on the same tensors and to
+   phase 4's path, ``streamed=True`` equal to False, the packed streamed
+   beam and k > C raising, an empty dictionary, k = C and k past F*K
+   answered as ``repro`` answers them, and each timed over 20 calls.
+   Every kernel of a path must launch
    in it, no plain version may run, the answers must equal the
    ``"torch"`` substrate's on
    the same index (edit paths: on their first 128, at E = 2 64, queries;
@@ -136,7 +150,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    advance's CUDA kernels and the keystroke's device busy share and
    phase-2 time (profiler), and so for one keystroke on DBLP TT (the
    link store's rule steps); USPS ET 1M packed with ``cache_k=16`` and
-   USPS plain 100k saved and loaded back onto the card (seconds, bytes),
+   USPS plain 100k saved (by a thread beside phase 3, host work alone) and
+   loaded back onto the card (seconds, bytes),
    their answers on the batch workload equal to the originals' with the
    same kernels launching; ``kind="multiterm"`` on the JAX package's
    example (its expected answers, dense and packed) and on DBLP cut to
@@ -178,6 +193,7 @@ import multiprocessing
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -262,67 +278,159 @@ MT_EXPECT = {
 }
 
 
-def build_shard_host(job):
-    """A worker process's shard of the sharded index: built on the host
-    (``device="cpu"``) and pickled to ``path`` as the parts
-    ``CompletionIndex.from_parts`` takes (a pipe back to the parent moves
-    ~0.14 GB/s, a file in the page cache several); returns the build's
-    start and end."""
-    strings, scores, rule_pairs, spec_kw, path = job
+def dump_parts(parts, path: str) -> None:
+    """Pickle ``parts`` to ``path``, every numpy array of 1 MiB or more
+    written beside it as a raw ``.npy`` file (read back mapped)."""
     import pickle
 
+    import numpy as np
+
+    arrays = []
+
+    def persistent_id(obj):
+        if isinstance(obj, np.ndarray) and obj.nbytes >= 1 << 20:
+            name = f"{path}.{len(arrays)}.npy"
+            np.save(name, obj)
+            arrays.append(name)
+            return name
+        return None
+
+    with open(path, "wb") as f:
+        pickler = pickle.Pickler(f, protocol=5)
+        pickler.persistent_id = persistent_id
+        pickler.dump(parts)
+
+
+def load_parts(path: str):
+    """What :func:`dump_parts` wrote, its large arrays memory-mapped copy
+    on write: a read costs no copy, the copy to the card reads the pages.
+    Through a plain pickle the 1M index's ~20 GB came back at ~0.33 GB/s."""
+    import pickle
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        unpickler = pickle.Unpickler(f)
+        unpickler.persistent_load = lambda name: np.load(name, mmap_mode="c")
+        return unpickler.load()
+
+
+def host_job(job):
+    """One host build step in a worker process (``device="cpu"``), its
+    result written to ``path`` (:func:`dump_parts`) as the parts
+    ``CompletionIndex.from_parts`` takes (a pipe back to the parent moves
+    ~0.14 GB/s).  ``("build", (strings, scores, rule_pairs, spec_kw))``
+    builds an index; ``("derive", (src, cache, compression))`` reads the
+    parts at ``src`` and runs the build's last steps on a copy of its
+    trie: the per-node top-K cache when ``cache``, then the packed layout
+    when ``compression == "packed"``.  Returns the step's start and end."""
+    what, args, path = job
     import torch
 
     import repro_torch as rt
+    from repro_torch.api.build import derived_stats
+    from repro_torch.core import trie_build as tb
     from repro_torch.core.trie_build import make_rules
 
     torch.set_num_threads(1)
     t = time.time()
-    idx = rt.build_index(strings or [""], scores or [1],
-                         make_rules(rule_pairs), rt.IndexSpec(**spec_kw),
-                         device="cpu")
+    if what == "build":
+        strings, scores, rule_pairs, spec_kw = args
+        if not len(strings):        # an empty shard, as the index builds it
+            strings, scores = [""], [1]
+        idx = rt.build_index(strings, scores, make_rules(rule_pairs),
+                             rt.IndexSpec(**spec_kw), device="cpu")
+        parts = (idx.trie, idx.rule_trie, idx.rules, idx.strings,
+                 idx.scores, idx.cfg, idx.spec, idx.stats)
+    else:
+        src, cache, compression = args
+        trie, rule_trie, rules, strings, scores, cfg, spec, stats = \
+            load_parts(src)
+        trie = dataclasses.replace(trie)
+        if cache:
+            tb.build_topk_cache(trie, CACHE_K)
+        widths = tb.pack_compressed(trie) if compression == "packed" else {}
+        cache_k = CACHE_K if trie.topk_score is not None else 0
+        cfg = dataclasses.replace(
+            cfg, use_cache=cache_k > 0, cache_k=cache_k,
+            compression=compression,
+            table_widths=tuple(sorted(widths.items())))
+        parts = (trie, rule_trie, rules, strings, scores, cfg,
+                 spec.replace(cache_k=cache_k, compression=compression),
+                 derived_stats(stats, trie, rule_trie))
     end = time.time()
-    with open(path, "wb") as f:
-        pickle.dump((idx.trie, idx.rule_trie, idx.rules, idx.strings,
-                     idx.scores, idx.cfg, idx.spec, idx.stats), f,
-                    protocol=5)
+    dump_parts(parts, path)
     return t, end
 
 
-def build_shards(usps) -> tuple:
-    """The sharded cell's shards built by SHARD_WORKERS worker processes:
-    (their parts, the wall seconds, a line on how the builds overlapped)."""
-    import pickle
-
-    from repro_torch.core.distributed import shard_strings
+def host_builds(jobs: dict, workers: int, tmp: str, out: dict) -> None:
+    """Run ``jobs`` ({name: (what, args, source job or None)}) in
+    ``workers`` spawned processes, filling ``out``: a job starts once its
+    source has landed (a derive step reads its source's file), the rest
+    in the order given.  Each result is read back as it lands into
+    ``out["parts"]`` (``out["landed"]`` notified), its (start, end) from
+    t0 into ``out["spans"]``; ``out["quiet"]`` is set once at most two
+    jobs remain; then the wall seconds and a line on how the builds
+    overlapped, or ``out["error"]``."""
+    from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
 
     t0 = time.time()
-    buckets = shard_strings(usps.strings, usps.scores, SHARDS)
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = [str(Path(tmp) / f"shard_{i}.pkl") for i in range(SHARDS)]
-        with multiprocessing.get_context("spawn").Pool(SHARD_WORKERS) as pool:
-            spans = pool.map(
-                build_shard_host,
-                [(b[0], b[1], usps.rules, dict(kind="et", cache_k=CACHE_K),
-                  path) for b, path in zip(buckets, paths)],
-                chunksize=1)
-        t_read = time.time()
-        parts = []
-        for path in paths:
-            with open(path, "rb") as f:
-                parts.append(pickle.load(f))
-    wall = time.time() - t0
-    edges = sorted([(a, 1) for a, _ in spans] + [(b, -1) for _, b in spans])
+    path = {name: str(Path(tmp) / f"job_{i}.pkl")
+            for i, name in enumerate(jobs)}
+    parts, spans, read = out["parts"], out["spans"], 0.0
+    try:
+        with ProcessPoolExecutor(
+                workers,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            running = {}
+
+            def submit_ready():
+                for name, (what, args, src) in jobs.items():
+                    if name in spans or name in running.values() \
+                            or (src is not None and src not in spans):
+                        continue
+                    if what == "derive":
+                        args = (path[src],) + tuple(args)
+                    running[ex.submit(host_job,
+                                      (what, args, path[name]))] = name
+
+            submit_ready()
+            while running:
+                done, _ = wait(running, return_when=FIRST_COMPLETED)
+                for fut in done:
+                    a, b = fut.result()
+                    spans[running.pop(fut)] = (a - t0, b - t0)
+                submit_ready()
+                if len(running) <= 2:
+                    out["quiet"].set()
+                for name in [n for n in spans if n not in parts]:
+                    t = time.time()
+                    got = load_parts(path[name])
+                    read += time.time() - t
+                    with out["landed"]:
+                        parts[name] = got
+                        out["landed"].notify_all()
+    except Exception as err:     # the waiting parent fails on it too
+        out["error"] = err
+        raise
+    finally:
+        out["quiet"].set()
+        with out["landed"]:
+            out["landed"].notify_all()
+    if "error" in out:
+        return
+    edges = sorted([(a, 1) for a, _ in spans.values()]
+                   + [(b, -1) for _, b in spans.values()])
     now = most = 0
     for _, step in edges:
         now += step
         most = max(most, now)
-    timeline = (f"{sum(b - a for a, b in spans):.1f} s of builds, the "
-                f"first starting {min(a for a, _ in spans) - t0:.1f} s "
-                f"and the last ending {max(b for _, b in spans) - t0:.1f} s "
-                f"in, at most {most} at once; read back in "
-                f"{time.time() - t_read:.1f} s")
-    return parts, wall, timeline
+    out["wall"] = time.time() - t0
+    out["timeline"] = (
+        f"{sum(b - a for a, b in spans.values()):.1f} s of builds in "
+        f"{len(spans)} steps, the last ending "
+        f"{max(b for _, b in spans.values()):.1f} s in, at most {most} at "
+        f"once; read back in {read:.1f} s")
 
 
 def free_port() -> int:
@@ -609,10 +717,9 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import repro_torch as rt
-    from repro_torch.api.build import derived_stats
-    from repro_torch.core import trie_build as tb
     from repro_torch.core.alphabet import pad_queries
     from repro_torch.core.engine import beam, cached, locus
+    from repro_torch.core.distributed import shard_strings
     from repro_torch.core.engine.substrate import get_substrate
     from repro_torch.core.trie_build import make_rules
     from repro_torch.data.strings import (make_dblp, make_keystroke_events,
@@ -631,7 +738,83 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
-    # -- phase 1: build the kernels -------------------------------------------
+    # -- phases 1-2: the host builds in worker processes, the kernels -------
+    n_dblp, n_usps_plain, n_usps_et = ((2_000, 5_000, 20_000) if args.small
+                                       else (24_810, 100_000, 1_000_000))
+    dblp = make_dblp(n_dblp, seed=0)
+    usps_small = make_usps(n_usps_plain, seed=0)
+    t = time.perf_counter()
+    usps = make_usps(n_usps_et, seed=0)
+    log(f"make_usps({n_usps_et}): {time.perf_counter() - t:.3f} s")
+    # every host build (and the top-K caches and packed layouts derived
+    # from them) runs in SHARD_WORKERS spawned processes, started while
+    # the parent is small, each result through a pickled file and onto the
+    # card as it lands; the longest chain (USPS ET 1M, its cache, its
+    # packed cache) first, the kernels built once the other jobs are done.
+    # In the parent the builds took ~360 s one after another; beside
+    # worker processes they slowed as much as the workers saved; the
+    # packed cache made from the dense trie beside the dense cache, not
+    # after it, took 98 s instead of 64 + 24 (two caches at once)
+    ties = {}
+    for tie in TIE_SCORES:
+        n = len(usps_small.strings)
+        ties[tie] = dataclasses.replace(usps_small, scores=(
+            np.full(n, 7) if tie == "equal" else
+            np.random.default_rng(5).choice([5, 9, 13], n)))
+    wide_ds = dataclasses.replace(usps_small, scores=np.random.default_rng(
+        6).integers(0, 2**30, len(usps_small.strings)))
+
+    def job(ds, kind, **spec_kw):
+        rules = ds.rules if kind != "plain" else []
+        return ("build", (ds.strings, ds.scores, rules,
+                          dict(kind=kind, **spec_kw)), None)
+
+    jobs = {"USPS et": job(usps, "et"),
+            "USPS ET cache_k=16": ("derive", (True, "none"), "USPS et"),
+            "DBLP ht": job(dblp, "ht")}
+    for i, (strings, scores) in enumerate(shard_strings(
+            usps.strings, usps.scores, SHARDS)):
+        jobs[f"shard {i}"] = ("build", (strings, scores, usps.rules,
+                                        dict(kind="et", cache_k=CACHE_K)),
+                              None)
+    jobs.update({
+        "DBLP tt": job(dblp, "tt"),
+        "USPS plain": job(usps_small, "plain"),
+        **{f"USPS scores {tie} et": job(ds, "et")
+           for tie, ds in ties.items()},
+        "USPS scores wide plain": job(wide_ds, "plain"),
+        "USPS ET 100k cache_k=16": job(usps_small, "et", cache_k=CACHE_K),
+        "USPS ET packed": ("derive", (False, "packed"), "USPS et"),
+        "USPS ET packed cache_k=16": ("derive", (False, "packed"),
+                                      "USPS ET cache_k=16"),
+        "DBLP TT packed": ("derive", (False, "packed"), "DBLP tt"),
+        "DBLP HT packed": ("derive", (False, "packed"), "DBLP ht"),
+        "DBLP TT packed cache_k=16": ("derive", (True, "packed"), "DBLP tt"),
+        "USPS plain cache_k=16": ("derive", (True, "none"), "USPS plain"),
+        "USPS plain packed": ("derive", (False, "packed"), "USPS plain"),
+        "USPS plain scores wide packed cache_k=16": (
+            "derive", (True, "packed"), "USPS scores wide plain")})
+    for tie in TIE_SCORES:
+        src = f"USPS scores {tie} et"
+        jobs.update({
+            f"USPS ET scores {tie} packed": ("derive", (False, "packed"),
+                                             src),
+            f"USPS ET scores {tie} cache_k=16": ("derive", (True, "none"),
+                                                 src),
+            f"USPS ET scores {tie} packed cache_k=16": (
+                "derive", (False, "packed"),
+                f"USPS ET scores {tie} cache_k=16")})
+    host_tmp = tempfile.TemporaryDirectory()
+    host = {"parts": {}, "spans": {}, "landed": threading.Condition(),
+            "quiet": threading.Event()}
+    pool = threading.Thread(target=host_builds, args=(
+        jobs, SHARD_WORKERS, host_tmp.name, host))
+    pool.start()
+
+    # the kernels (an nvcc a source, all at once) once the workers'
+    # other jobs are done: started beside them, the nvccs slowed the
+    # workers' start and so the longest chain
+    host["quiet"].wait()
     t0 = time.perf_counter()
     _build.build_all()
     for name in _build.SOURCES:
@@ -644,124 +827,87 @@ def main() -> int:
                     or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    # -- phase 2: the indexes -------------------------------------------------------
     log(f"phase 2 at {time.perf_counter() - t_start:.1f} s")
-    n_dblp, n_usps_plain, n_usps_et = ((2_000, 5_000, 20_000) if args.small
-                                       else (24_810, 100_000, 1_000_000))
-    builds = {}
+    parts, spans = host["parts"], host["spans"]
 
-    def build(name, ds, kind):
+    def landed(name):
+        """Job ``name``'s parts, once they have landed."""
+        with host["landed"]:
+            host["landed"].wait_for(
+                lambda: name in parts or "error" in host
+                or not pool.is_alive())
+        if name not in parts:
+            raise AssertionError(f"the host builds failed before {name}: "
+                                 f"{host.get('error')!r}")
+        return parts.pop(name)
+
+    def index(name):
+        """The index of job ``name`` on the card (``from_parts``)."""
+        trie, rule_trie, rules, strings, scores, cfg, spec, stats = \
+            landed(name)
         t = time.perf_counter()
-        rules = make_rules(ds.rules) if kind != "plain" else []
-        idx = rt.build_index(ds.strings, ds.scores, rules,
-                             rt.IndexSpec(kind=kind), device=dev)
+        idx = rt.CompletionIndex.from_parts(
+            trie, rule_trie, rules, strings, scores, cfg, device=dev,
+            spec=spec, stats=stats)
         torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        log(f"build {name} {kind} ({len(ds.strings)} strings): {secs:.3f} s, "
-            f"{idx.stats.n_nodes} nodes, {idx.stats.bytes_per_string:.1f} "
-            f"B/string, rule_matches={idx.cfg.rule_matches}, "
-            f"teleports={idx.cfg.teleports}")
-        builds[name, kind] = secs
+        n = len(idx.strings)
+        what, _, src = jobs[name]
+        a, b = spans[name]
+        head = (f"build {name} ({n} strings): {b - a:.3f} s in a worker, "
+                f"{a:.1f}-{b:.1f} s in; onto the card "
+                f"{time.perf_counter() - t:.3f} s")
+        if what == "build":
+            log(f"{head}, {idx.stats.n_nodes} nodes, "
+                f"{idx.stats.bytes_per_string:.1f} B/string, rule_matches="
+                f"{idx.cfg.rule_matches}, teleports={idx.cfg.teleports}")
+            return idx
+        packed = idx.compression == "packed"
+        hb = (trie.packed_nbytes() + rule_trie.nbytes()) if packed else 0
+        log(f"{head} (from {src}), device tensors {device_bytes(idx)} B = "
+            f"{device_bytes(idx) / n:.1f} B/string"
+            + (f", packed layout + rule trie {hb / n:.1f} B/string "
+               f"(tiers {dict(idx.cfg.table_widths)}, "
+               f"{int(idx.tensors.c_ids.shape[0])} stored nodes)"
+               if packed else ""))
         return idx
 
-    def cached_trie(idx):
-        """The index's host trie with the per-node top-K cache added (the
-        build's step after the rule side; the dense arrays are shared)."""
-        t = time.perf_counter()
-        trie = dataclasses.replace(idx.trie)
-        tb.build_topk_cache(trie, CACHE_K)
-        builds["top-K cache", len(idx.strings)] = time.perf_counter() - t
-        return trie
-
-    def derive(name, idx, trie, compression):
-        """An index over ``trie`` (the host trie of ``idx``, cached or not)
-        in the given layout: the build's last step (pack_compressed) on a
-        copy, then the public ``CompletionIndex.from_parts``."""
-        t = time.perf_counter()
-        trie = dataclasses.replace(trie)
-        widths = tb.pack_compressed(trie) if compression == "packed" else {}
-        cache_k = CACHE_K if trie.topk_score is not None else 0
-        cfg = replace(idx.cfg, use_cache=cache_k > 0, cache_k=cache_k,
-                      compression=compression,
-                      table_widths=tuple(sorted(widths.items())))
-        out = rt.CompletionIndex.from_parts(
-            trie, idx.rule_trie, idx.rules, idx.strings, idx.scores, cfg,
-            device=dev, spec=idx.spec.replace(cache_k=cache_k,
-                                              compression=compression),
-            stats=derived_stats(idx.stats, trie, idx.rule_trie))
-        torch.cuda.synchronize()
-        builds[name] = time.perf_counter() - t
-        n = len(out.strings)
-        host = (trie.packed_nbytes() + idx.rule_trie.nbytes()
-                if compression == "packed" else None)
-        log(f"derive {name}: {builds[name]:.3f} s, device tensors "
-            f"{device_bytes(out)} B = {device_bytes(out) / n:.1f} B/string"
-            + (f", packed layout + rule trie {host / n:.1f} B/string "
-               f"(tiers {dict(out.cfg.table_widths)}, "
-               f"{int(out.tensors.c_ids.shape[0])} stored nodes)"
-               if host else ""))
-        return out
-
-    dblp = make_dblp(n_dblp, seed=0)
-    usps_small = make_usps(n_usps_plain, seed=0)
-    t = time.perf_counter()
-    usps = make_usps(n_usps_et, seed=0)
-    log(f"make_usps({n_usps_et}): {time.perf_counter() - t:.3f} s")
-    # phase 4c's shards, built before the other host builds: worker
-    # processes started beside them slowed them by as much as they took,
-    # and started late (a large parent) they overlapped little
-    shard_parts, shard_wall, shard_timeline = build_shards(usps)
-    builds["USPS ET 16 shards (workers' wall)"] = shard_wall
-    log(f"build USPS ET {SHARDS} shards cache_k=16 in {SHARD_WORKERS} "
-        f"worker processes: {shard_wall:.3f} s ({shard_timeline})")
-    dblp_tt = build("DBLP", dblp, "tt")
-    dblp_ht = build("DBLP", dblp, "ht")
-    usps_plain = build("USPS", usps_small, "plain")
-    usps_et = build("USPS", usps, "et")
-    dblp_tt_p = derive("DBLP TT packed", dblp_tt, dblp_tt.trie, "packed")
-    dblp_ht_p = derive("DBLP HT packed", dblp_ht, dblp_ht.trie, "packed")
-    usps_et_p = derive("USPS ET packed", usps_et, usps_et.trie, "packed")
-    et_cached = cached_trie(usps_et)
-    usps_et_pc = derive("USPS ET packed cache_k=16", usps_et, et_cached,
-                        "packed")
-    usps_et_c = derive("USPS ET cache_k=16", usps_et, et_cached, "none")
-    usps_plain_c = derive("USPS plain cache_k=16", usps_plain,
-                          cached_trie(usps_plain), "none")
-    usps_plain_p = derive("USPS plain packed", usps_plain, usps_plain.trie,
-                          "packed")
-    del et_cached
+    dblp_tt, dblp_ht = index("DBLP tt"), index("DBLP ht")
+    usps_plain = index("USPS plain")
+    dblp_tt_p = index("DBLP TT packed")
+    dblp_ht_p = index("DBLP HT packed")
+    usps_plain_c = index("USPS plain cache_k=16")
+    usps_plain_p = index("USPS plain packed")
     # the tie-heavy corpora: USPS ET at the plain cut's size, every score
     # equal or drawn from three values (numpy, seed 5)
-    tie_indexes = {}
-    for tie in TIE_SCORES:
-        n = len(usps_small.strings)
-        scores = (np.full(n, 7) if tie == "equal" else
-                  np.random.default_rng(5).choice([5, 9, 13], n))
-        ds = dataclasses.replace(usps_small, scores=scores)
-        idx = build(f"USPS scores {tie}", ds, "et")
-        tie_indexes[tie] = (idx, derive(f"USPS ET scores {tie} packed", idx,
-                                        idx.trie, "packed"))
+    tie_indexes = {tie: (index(f"USPS scores {tie} et"),
+                         index(f"USPS ET scores {tie} packed"))
+                   for tie in TIE_SCORES}
     # the cached merge's corpora beside USPS ET 1M: the tie-heavy ones with
     # a cache (dense and packed), DBLP TT packed with a cache (its sids fit
     # the u16 tier) and USPS plain 100k with scores spread over 2^30 (its
     # cache scores take the int32 tier)
-    merge_indexes = {}
-    for tie in TIE_SCORES:
-        idx = tie_indexes[tie][0]
-        trie_c = cached_trie(idx)
-        merge_indexes[f"scores {tie}"] = (
-            derive(f"USPS ET scores {tie} cache_k=16", idx, trie_c, "none"),
-            derive(f"USPS ET scores {tie} packed cache_k=16", idx, trie_c,
-                   "packed"))
-    wide = build("USPS scores wide", dataclasses.replace(
-        usps_small, scores=np.random.default_rng(6).integers(
-            0, 2**30, len(usps_small.strings))), "plain")
+    merge_indexes = {
+        f"scores {tie}": (index(f"USPS ET scores {tie} cache_k=16"),
+                          index(f"USPS ET scores {tie} packed cache_k=16"))
+        for tie in TIE_SCORES}
+    landed("USPS scores wide plain")
     tier_indexes = {
-        "DBLP TT": derive("DBLP TT packed cache_k=16", dblp_tt,
-                          cached_trie(dblp_tt), "packed"),
-        "USPS scores wide": derive("USPS plain scores wide packed cache_k=16",
-                                   wide, cached_trie(wide), "packed")}
-    del wide
+        "DBLP TT": index("DBLP TT packed cache_k=16"),
+        "USPS scores wide": index("USPS plain scores wide packed cache_k=16")}
+    shard_parts = [landed(f"shard {i}") for i in range(SHARDS)]
+    shard_spans = [spans[f"shard {i}"] for i in range(SHARDS)]
+    churn_idx = index("USPS ET 100k cache_k=16")
+    # the longest chain last
+    usps_et = index("USPS et")
+    usps_et_p = index("USPS ET packed")
+    usps_et_c = index("USPS ET cache_k=16")
+    usps_et_pc = index("USPS ET packed cache_k=16")
+    pool.join()
+    host_tmp.cleanup()
+    builds = {name: round(b - a, 3) for name, (a, b) in spans.items()}
+    builds["workers' wall"] = host["wall"]
+    log(f"host builds in {SHARD_WORKERS} worker processes: "
+        f"{host['wall']:.3f} s wall ({host['timeline']})")
 
     def batch(ds, seed, n=B):
         qs, ql = pad_queries(make_workload(ds, n, seed=seed), L_BUCKET)
@@ -769,6 +915,27 @@ def main() -> int:
 
     # -- phase 3: each kernel against its plain version -------------------------
     log(f"phase 3 at {time.perf_counter() - t_start:.1f} s")
+    # phase 5's two containers are written by a thread beside phase 3: a
+    # save is host work alone (numpy arrays, zlib, the file; zlib and the
+    # file write run without the GIL), phase 3 keeps one core launching
+    # kernels.  Joined before phase 4, whose times it would disturb
+    save_tmp = tempfile.TemporaryDirectory()
+    saved = {}
+
+    def save_all():
+        try:
+            for name, idx in (("USPS ET packed cache_k=16", usps_et_pc),
+                              ("USPS plain", usps_plain)):
+                path = str(Path(save_tmp.name) / f"{len(saved)}.npz")
+                t = time.perf_counter()
+                idx.save(path)
+                saved[name] = (path, time.perf_counter() - t,
+                               Path(path).stat().st_size)
+        except BaseException as e:   # re-raised by the main thread below
+            saved["error"] = e
+
+    saver = threading.Thread(target=save_all)
+    saver.start()
     log("kernel parity (kernel vs plain version on the card):")
     loci_sets = {}
     for name, idx, ds in (("DBLP TT", dblp_tt, dblp),
@@ -1179,6 +1346,13 @@ def main() -> int:
                 1e-5)
     del table33
 
+    t = time.perf_counter()
+    saver.join()
+    if "error" in saved:
+        raise AssertionError("phase 5's saves failed") from saved["error"]
+    log(f"phase 5's saves done beside phase 3 ({time.perf_counter() - t:.1f}"
+        " s waited for them at its end)")
+
     # -- phase 4: the main path ---------------------------------------------------
     log(f"phase 4 at {time.perf_counter() - t_start:.1f} s")
     counters = {
@@ -1308,6 +1482,19 @@ def main() -> int:
             if by_width and key[0] in names:
                 width_launched[key] = width_launched.get(key, 0) + n
 
+    # every key the USPS ET 1M index's compile cache is asked for in
+    # phase 4, in order (the cache line below replays them)
+    et_cache, et_keys = usps_et._compile_cache, []
+    if len(et_cache) or et_cache.misses:
+        raise AssertionError("USPS ET 1M's compile cache was used before "
+                             "phase 4")
+    et_get = et_cache.get
+
+    def recording_get(key, factory):
+        et_keys.append(key)
+        return et_get(key, factory)
+
+    et_cache.get = recording_get
     record(main_path("USPS ET", usps_et, usps, ("locus_dp", "beam_topk")),
            "locus_dp", "beam_topk")
 
@@ -1379,6 +1566,197 @@ def main() -> int:
             and bag_out.shape == (BAGS, BAG_D)):
         raise AssertionError("ops path: malformed outputs")
     record(c, "candidate_topk", "embedding_bag")
+
+    # the compile cache of USPS ET 1M over phase 4: its counts against an
+    # LRU of the same size replayed over the keys phase 4 asked for
+    del et_cache.get
+    replay = rt.api.CompileCache(maxsize=et_cache.maxsize)
+    for key in et_keys:
+        replay.get(key, lambda: None)
+    got_cc = (et_cache.hits, et_cache.misses, et_cache.evictions)
+    distinct = len(set(et_keys))
+    log(f"compile cache USPS ET 1M over phase 4: hits {got_cc[0]}, misses "
+        f"{got_cc[1]}, evictions {got_cc[2]} ({len(et_keys)} lookups of "
+        f"{distinct} distinct keys, kinds "
+        f"{sorted({k[0] for k in et_keys})}; maxsize {et_cache.maxsize}, "
+        f"{len(et_cache)} entries)")
+    if got_cc != (replay.hits, replay.misses, replay.evictions) \
+            or (got_cc[2] == 0 and got_cc[1] != distinct):
+        raise AssertionError(
+            f"compile cache: {got_cc} against the replay's "
+            f"{(replay.hits, replay.misses, replay.evictions)} and "
+            f"{distinct} distinct keys")
+
+    # the ops wrappers (repro.kernels.ops's names) on the main path's
+    # shapes: B=64, L=32, k=10, F=32 on USPS ET 1M dense and packed (with
+    # and without the cache) and USPS plain 100k; each held bit for bit
+    # against the torch substrate's plain version on the same tensors on
+    # the card and against phase 4's substrate path (the index's cached
+    # entry point) on the same batch, streamed=True against False, and the
+    # degenerate shapes repro short-circuits
+    torch_sub = get_substrate("torch")
+
+    def equal(what, got, want):
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:5].tolist()
+                raise AssertionError(f"ops {what}: differ at {bad}")
+
+    def ops_batch(ds):
+        qs, ql = pad_queries(make_workload(ds, 512, seed=1)[:B], L_BUCKET)
+        return torch.from_numpy(qs).to(dev), torch.from_numpy(ql).to(dev)
+
+    def phase4(idx, q, ql):
+        """What phase 4's path returns for the batch: the index's cached
+        entry point at this shape."""
+        return idx._fn(B, L_BUCKET, K, idx.cfg)(q, ql)
+
+    q_et, ql_et = ops_batch(usps)
+    q_pl, ql_pl = ops_batch(usps_small)
+    reset_counts()
+    ops_out = {}
+    for name, idx in (("dense", usps_et), ("packed", usps_et_p)):
+        t, cfg = idx.tensors, idx.cfg
+        loci = ops.locus_walk(t, cfg, q_et, ql_et)
+        ops_out[name] = (loci, ops.locus_walk(t, cfg, q_et, ql_et,
+                                              streamed=True),
+                         ops.beam_topk(t, cfg, loci[0], K))
+        if name == "dense":
+            ops_out["dense streamed beam"] = ops.beam_topk(
+                t, cfg, loci[0], K, streamed=True)
+    loci_c = ops.locus_walk(usps_et_c.tensors, usps_et_c.cfg, q_et, ql_et)
+    merge = ops.cached_topk_merge(loci_c[0], usps_et_c.tensors.topk_score,
+                                  usps_et_c.tensors.topk_sid, K)
+    loci_pc = ops.locus_walk(usps_et_pc.tensors, usps_et_pc.cfg, q_et,
+                             ql_et)
+    merge_p = ops.cached_topk_merge_packed(usps_et_pc.tensors, loci_pc[0], K)
+    tp = usps_plain.tensors
+    walk = ops.trie_walk(tp.first_child, tp.edge_char, tp.edge_child, q_pl,
+                         ql_pl)
+    walk_s = ops.trie_walk(tp.first_child, tp.edge_char, tp.edge_child,
+                           q_pl, ql_pl, streamed=True,
+                           walk_tile=usps_plain.cfg.walk_tile)
+    walk_loci = torch.full((B, usps_plain.cfg.frontier), -1,
+                           dtype=torch.int32, device=dev)
+    walk_loci[:, 0] = torch.where(walk[1] == ql_pl, walk[0], -1)
+    plain_beam = ops.beam_topk(tp, usps_plain.cfg, walk_loci, K)
+    tpc = usps_plain_c.tensors
+    sc, si = cached.gather_cached(tpc, walk_loci[:, :1])
+    select = ops.topk_select(sc, si, K)
+    torch.cuda.synchronize()
+    c = counts()
+    log(f"ops wrappers: launches "
+        f"{ {k: v for k, v in c.items() if k != 'widths'} }")
+    ops_kernels = ("trie_walk", "locus_dp", "locus_dp_packed", "beam_topk",
+                   "beam_topk_packed", "topk_select", "locus_topk_merge")
+    for k_name in ops_kernels:
+        if c[k_name] <= 0:
+            raise AssertionError(f"ops wrappers: {k_name} never launched")
+    if c["plain"]:
+        raise AssertionError("ops wrappers: a plain version ran")
+    # a side check of the public wrappers, not the main path: its
+    # launches stay out of the kernels line's counts
+    # bit for bit: streamed against not, the torch substrate, phase 4
+    for name, idx in (("dense", usps_et), ("packed", usps_et_p)):
+        t, cfg = idx.tensors, idx.cfg
+        loci, loci_s, (s, i, e) = ops_out[name]
+        equal(f"locus_walk {name} streamed", loci_s, loci)
+        equal(f"locus_walk {name}", loci,
+              torch_sub.walk_batch(t, cfg, q_et, ql_et))
+        equal(f"beam_topk {name}", (s, i, e),
+              torch_sub.beam_topk_batch(t, cfg, loci[0], K))
+        ps, pi, pe = phase4(idx, q_et, ql_et)
+        equal(f"beam_topk {name} against phase 4", (s, i, e & (loci[1] == 0)),
+              (ps, pi, pe))
+    equal("beam_topk dense streamed", ops_out["dense streamed beam"],
+          ops_out["dense"][2])
+    try:
+        ops.beam_topk(usps_et_p.tensors, usps_et_p.cfg, ops_out["packed"][0][0],
+                      K, streamed=True)
+        raise AssertionError("ops.beam_topk: the packed streamed beam did "
+                             "not raise")
+    except ValueError:
+        pass
+    equal("cached_topk_merge", merge,
+          cached.cached_topk(usps_et_c.tensors, loci_c[0], K))
+    equal("cached_topk_merge against phase 4", merge,
+          phase4(usps_et_c, q_et, ql_et)[:2])
+    equal("cached_topk_merge_packed", merge_p,
+          cached.cached_topk(usps_et_pc.tensors, loci_pc[0], K))
+    equal("cached_topk_merge_packed against phase 4", merge_p,
+          phase4(usps_et_pc, q_et, ql_et)[:2])
+    equal("trie_walk streamed", walk_s, walk)
+    equal("trie_walk", walk, trie_walk.trie_walk_plain(
+        tp.first_child, tp.edge_char, tp.edge_child, q_pl, ql_pl))
+    equal("trie_walk against phase 4's walk", (walk_loci,),
+          (get_substrate("cuda").walk_batch(tp, usps_plain.cfg, q_pl,
+                                            ql_pl)[0],))
+    equal("trie_walk + beam_topk against phase 4", plain_beam,
+          phase4(usps_plain, q_pl, ql_pl))
+    equal("topk_select", select, cached.select_topk(sc, si, K))
+    equal("topk_select against phase 4", select,
+          phase4(usps_plain_c, q_pl, ql_pl)[:2])
+    # the degenerate shapes: an empty dictionary's beam (decided before
+    # any launch), k = C and k > C (raises, as lax.top_k), k past F*K
+    # (the merge kernel sorts the union, then pads with -1)
+    reset_counts()
+    empty = rt.build_index([], [], [], kind="et", device=dev)
+    es, ei, ee = ops.beam_topk(empty.tensors, empty.cfg,
+                               torch.full((B, 32), -1, dtype=torch.int32,
+                                          device=dev), K)
+    if c_empty := counts()["beam_topk"]:
+        raise AssertionError(f"ops.beam_topk: {c_empty} launches on an "
+                             "empty dictionary")
+    if not ((es == -1).all() and (ei == -1).all() and ee.all()):
+        raise AssertionError("ops.beam_topk: an empty dictionary answered")
+    s10, p10 = select
+    equal("topk_select k = C", ops.topk_select(s10, p10, K),
+          cached.select_topk(s10, p10, K))
+    try:
+        ops.topk_select(s10, p10, K + 1)
+        raise AssertionError("ops.topk_select: k > C did not raise")
+    except ValueError:
+        pass
+    wide_k = 2 * CACHE_K + 8
+    equal("cached_topk_merge k > F*K",
+          ops.cached_topk_merge(loci_c[0][:, :2].contiguous(),
+                                usps_et_c.tensors.topk_score,
+                                usps_et_c.tensors.topk_sid, wide_k),
+          cached.cached_topk(usps_et_c.tensors,
+                             loci_c[0][:, :2].contiguous(), wide_k))
+    equal("cached_topk_merge_packed k > F*K",
+          ops.cached_topk_merge_packed(usps_et_pc.tensors,
+                                       loci_pc[0][:, :2].contiguous(),
+                                       wide_k),
+          cached.cached_topk(usps_et_pc.tensors,
+                             loci_pc[0][:, :2].contiguous(), wide_k))
+    log("ops wrappers: every output equal to the torch substrate's and to "
+        "phase 4's on the same batch, streamed=True equal to False, the "
+        "packed streamed beam and k > C raising, the empty dictionary, "
+        "k = C and k > F*K as repro answers them")
+    ops_ms = {}
+    for name, fn in (
+            ("trie_walk", lambda: ops.trie_walk(
+                tp.first_child, tp.edge_char, tp.edge_child, q_pl, ql_pl)),
+            ("locus_walk dense", lambda: ops.locus_walk(
+                usps_et.tensors, usps_et.cfg, q_et, ql_et)),
+            ("locus_walk packed", lambda: ops.locus_walk(
+                usps_et_p.tensors, usps_et_p.cfg, q_et, ql_et)),
+            ("beam_topk dense", lambda: ops.beam_topk(
+                usps_et.tensors, usps_et.cfg, ops_out["dense"][0][0], K)),
+            ("beam_topk packed", lambda: ops.beam_topk(
+                usps_et_p.tensors, usps_et_p.cfg, ops_out["packed"][0][0],
+                K)),
+            ("topk_select", lambda: ops.topk_select(sc, si, K)),
+            ("cached_topk_merge", lambda: ops.cached_topk_merge(
+                loci_c[0], usps_et_c.tensors.topk_score,
+                usps_et_c.tensors.topk_sid, K)),
+            ("cached_topk_merge_packed", lambda: ops.cached_topk_merge_packed(
+                usps_et_pc.tensors, loci_pc[0], K))):
+        ops_ms[name] = cuda_ms(fn, 20)
+        log(f"ops.{name} (B={B}, L={L_BUCKET}, k={K}, F=32): "
+            f"{ops_ms[name]:.4f} ms a call (CUDA events over 20 calls)")
+    del empty
 
     # the paper's Figure 1 example, answered by hand, in every layout
     fig1 = (["andrew pavlo", "andrew parker", "andrew packard",
@@ -1584,14 +1962,7 @@ def main() -> int:
     # (b) churn: serve_churn's loop on USPS ET 100k with cache_k=16 — a
     # mutation batch every CHURN_EVERY events, compaction at a backlog of
     # COMPACT_AT, the scheduler's lanes migrating across each swap
-    t = time.perf_counter()
-    churn_idx = rt.build_index(usps_small.strings, usps_small.scores,
-                               make_rules(usps_small.rules),
-                               rt.IndexSpec(kind="et", cache_k=CACHE_K),
-                               device=dev)
-    torch.cuda.synchronize()
-    log(f"build USPS ET cache_k=16 ({len(usps_small.strings)} strings): "
-        f"{time.perf_counter() - t:.3f} s")
+    # (built in phase 2's worker processes)
     events = make_keystroke_events(usps_small, SERVE_SESSIONS,
                                    16 if args.small else CHURN_QUERIES,
                                    seed=1)
@@ -1856,7 +2227,8 @@ def main() -> int:
             "scores cut by k)")
 
     # (a) USPS ET 1M over 16 shards, cache_k=16, dense, in one process
-    # (its shards built in phase 2; one after another they take ~150 s)
+    # (its shards built in phase 2's worker processes; one after another
+    # they take ~150 s)
     t = time.perf_counter()
     shards = [rt.CompletionIndex.from_parts(
         trie, rule_trie, rules, strings, scores, cfg, device=dev, spec=spec,
@@ -1869,8 +2241,11 @@ def main() -> int:
     wrap_s = time.perf_counter() - t
     n_usps = len(usps.strings)
     log(f"sharded USPS ET ({n_usps} strings, {SHARDS} shards, cache_k=16): "
-        f"built in {SHARD_WORKERS} worker processes in {shard_wall:.1f} s "
-        f"wall ({shard_timeline}), onto the card and stacked "
+        f"built in phase 2's worker processes ("
+        f"{sum(b - a for a, b in shard_spans):.1f} s of builds, "
+        f"{min(a for a, _ in shard_spans):.1f}-"
+        f"{max(b for _, b in shard_spans):.1f} s in), onto the card and "
+        f"stacked "
         f"in {wrap_s:.1f} s; strings a shard "
         f"{min(len(x) for x in sharded.shard_strings)}-{sharded.stride}, "
         f"empty shards {sum(sharded.empty)}; stacked tables "
@@ -2187,28 +2562,26 @@ def main() -> int:
     log(f"sessions done at {time.perf_counter() - t_start:.1f} s")
 
     # (b) save and load: the container round trip onto the card, answers
-    # held against the original index's
-    with tempfile.TemporaryDirectory() as tmp:
+    # held against the original index's (the containers written beside
+    # phase 3)
+    with save_tmp:
         for name, idx, ds, must in (
                 ("USPS ET packed cache_k=16", usps_et_pc, usps,
                  ("locus_dp_packed", "locus_topk_merge")),
                 ("USPS plain", usps_plain, usps_small,
                  ("trie_walk_loci", "beam_topk"))):
-            path = str(Path(tmp) / "index.npz")
-            t = time.perf_counter()
-            idx.save(path)
-            save_s = time.perf_counter() - t
-            size = Path(path).stat().st_size
+            path, save_s, size = saved[name]
             t = time.perf_counter()
             loaded = rt.CompletionIndex.load(path, device=dev)
             torch.cuda.synchronize()
             load_s = time.perf_counter() - t
-            log(f"save/load {name}: save {save_s:.3f} s, container {size} B "
-                f"({size / len(idx.strings):.1f} B/string), load onto the "
-                f"card {load_s:.3f} s, {device_bytes(loaded)} B on the card "
-                f"(the original {device_bytes(idx)} B), epoch {loaded.epoch}, "
-                f"substrate {loaded.substrate}; loaded index's batch answers "
-                "held against the original's below")
+            log(f"save/load {name}: save {save_s:.3f} s (beside phase 3), "
+                f"container {size} B ({size / len(idx.strings):.1f} "
+                f"B/string), load onto the card {load_s:.3f} s, "
+                f"{device_bytes(loaded)} B on the card (the original "
+                f"{device_bytes(idx)} B), epoch {loaded.epoch}, substrate "
+                f"{loaded.substrate}; loaded index's batch answers held "
+                "against the original's below")
             if loaded.substrate != "cuda" or \
                     device_bytes(loaded) != device_bytes(idx):
                 raise AssertionError(f"save/load {name}: the loaded index "

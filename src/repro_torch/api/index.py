@@ -17,9 +17,13 @@ session and scheduler-slab entry points, and the online-mutation surface:
   slabs migrate onto the new epoch at their next keystroke boundary by
   replaying their retained prefixes.
 
-PyTorch runs eagerly, so there is no compile cache; batch and query
-length are still bucketed to powers of two, as in the JAX package, so
-both packages run every query at the same shapes.
+Every entry point is fetched from a bounded compile cache
+(:class:`~repro_torch.api.compile_cache.CompileCache`) under the JAX
+package's keys and at its call points.  PyTorch runs eagerly, so an entry
+is the prepared callable (the substrate's entry point with the tensors,
+the config and k bound), not an executable; batch and query length are
+bucketed to powers of two, as in the JAX package, so both packages run
+every query at the same shapes and count the same hits and misses.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.build import BuildStats
+from repro_torch.api.compile_cache import CompileCache, bucket_size
 from repro_torch.api.spec import IndexSpec
 from repro_torch.core import engine as eng
 from repro_torch.core import trie_build as tb
@@ -47,12 +52,6 @@ RUNTIME_FIELDS = ("substrate", "memory_budget", "frontier", "gens",
                   "expand", "max_steps", "edit_budget")
 #: fields baked into the built structures; changing them means a rebuild
 BUILD_FIELDS = ("kind", "alpha", "cache_k", "compression", "multiterm_gap")
-
-
-def bucket_size(n: int, minimum: int = 8) -> int:
-    """Round ``n`` up to the next power of two (at least ``minimum``)."""
-    n = max(int(n), 1)
-    return max(minimum, 1 << (n - 1).bit_length())
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -138,7 +137,7 @@ class CompletionIndex:
 
     def __init__(self, spec: IndexSpec, trie, rule_trie, rules, strings,
                  scores, cfg: EngineConfig, stats: BuildStats | None, *,
-                 device, epoch: int = 0):
+                 device, compile_cache_size: int = 32, epoch: int = 0):
         self.spec = spec
         self.trie = trie
         self.rule_trie = rule_trie
@@ -149,6 +148,7 @@ class CompletionIndex:
         self.stats = stats
         self.device = torch.device(device)
         self.tensors = _to_device(trie, rule_trie, self.device)
+        self._compile_cache = CompileCache(maxsize=compile_cache_size)
         #: queries re-run by each widened retry round (1st, 2nd, 3rd),
         #: summed over every lookup since the index was made
         self.retried = [0, 0, 0]
@@ -406,17 +406,20 @@ class CompletionIndex:
 
         Adopts every field of the fresh index — host structures, device
         tensors, config, counters — so nothing keeps answering from the
-        old tables, and bumps :attr:`epoch` so live sessions and slabs
-        re-derive their state (and refetch their entry points, which close
-        over the tensors) at the next keystroke boundary.  Mutations that
-        landed after the snapshot survive: they are diffed against it and
-        re-applied as a new overlay on the fresh base; a ``reconfigure``
-        that raced the prepare is re-applied on top."""
+        old tables, drops the compile cache (its entries close over the
+        old tensors under keys that do not name the epoch), and bumps
+        :attr:`epoch` so live sessions and slabs re-derive their state
+        (and refetch their entry points) at the next keystroke boundary.
+        Mutations that landed after the snapshot survive: they are diffed
+        against it and re-applied as a new overlay on the fresh base; a
+        ``reconfigure`` that raced the prepare is re-applied on top."""
         current = self.live_items()
         desired_spec = self.spec
         for name, value in vars(prepared.index).items():
-            if name not in ("epoch", "_overlay"):
+            if name not in ("epoch", "_overlay", "_compile_cache"):
                 setattr(self, name, value)
+        self._compile_cache = CompileCache(
+            maxsize=self._compile_cache.maxsize)
         self._overlay = None
         self.epoch += 1
         snap = prepared.snapshot
@@ -450,23 +453,44 @@ class CompletionIndex:
 
     # -- sessions ----------------------------------------------------------
 
+    def _fn(self, batch: int, length: int, k: int, cfg: EngineConfig):
+        """The batch entry point for one bucketed (batch, length, k, cfg):
+        (qs, qlens) on the device -> (scores, sids, exact)."""
+        key = ("batch", batch, length, k, cfg)
+
+        def factory():
+            dev = self.tensors
+            sub = subs.get_substrate(cfg.substrate)
+
+            def run(qs, qlens):
+                return subs.complete_batch(dev, cfg, qs, qlens, k, sub)
+
+            return run
+
+        return self._compile_cache.get(key, factory)
+
     def _session_fns(self, k: int):
         """(init, advance-one-char, topk) over this index's tensors and
         its current config (a :class:`~repro_torch.api.session.Session`
         refetches them when :attr:`epoch` moves)."""
-        dev, cfg = self.tensors, self.cfg
-        sub = subs.get_substrate(cfg.substrate)
+        key = ("session", k, self.cfg)
 
-        def init():
-            return eng.init_locus_state(dev, cfg, sub)
+        def factory():
+            dev, cfg = self.tensors, self.cfg
+            sub = subs.get_substrate(cfg.substrate)
 
-        def advance(state, c):
-            return eng.advance_locus_state(dev, cfg, state, c, sub)
+            def init():
+                return eng.init_locus_state(dev, cfg, sub)
 
-        def topk(state):
-            return eng.topk_from_loci(dev, cfg, state, k, sub)
+            def advance(state, c):
+                return eng.advance_locus_state(dev, cfg, state, c, sub)
 
-        return init, advance, topk
+            def topk(state):
+                return eng.topk_from_loci(dev, cfg, state, k, sub)
+
+            return init, advance, topk
+
+        return self._compile_cache.get(key, factory)
 
     def _slab_fns(self, block: int):
         """(init, advance) over ``block`` lanes: the scheduler's pair.
@@ -477,33 +501,44 @@ class CompletionIndex:
         ``resets`` and then advances every lane whose char is >= 0, with
         no read back to the host.  The empty-prefix lane depends on the
         tensors and the config alone, so it is made here, once a
-        scheduler epoch (a migration refetches the pair)."""
-        dev, cfg = self.tensors, self.cfg
-        sub = subs.get_substrate(cfg.substrate)
-        empty = eng.init_locus_batch(dev, cfg, 1, sub)
+        cache entry."""
+        key = ("slab", block, self.cfg)
 
-        def init():
-            return eng.init_locus_batch(dev, cfg, block, sub)
+        def factory():
+            dev, cfg = self.tensors, self.cfg
+            sub = subs.get_substrate(cfg.substrate)
+            empty = eng.init_locus_batch(dev, cfg, 1, sub)
 
-        def advance(slab, chars, resets):
-            slab = eng.LocusState(*(
-                torch.where(resets.reshape((block,) + (1,) * (s.dim() - 1)),
-                            z, s)
-                for s, z in zip(slab, empty)))
-            return eng.advance_loci_batch(dev, cfg, slab, chars, sub)
+            def init():
+                return eng.init_locus_batch(dev, cfg, block, sub)
 
-        return init, advance
+            def advance(slab, chars, resets):
+                slab = eng.LocusState(*(
+                    torch.where(
+                        resets.reshape((block,) + (1,) * (s.dim() - 1)),
+                        z, s)
+                    for s, z in zip(slab, empty)))
+                return eng.advance_loci_batch(dev, cfg, slab, chars, sub)
+
+            return init, advance
+
+        return self._compile_cache.get(key, factory)
 
     def _slab_topk_fn(self, block: int, k: int):
         """The top-k of every lane of a slab in one phase-2 launch:
         slab -> (scores[block, k], sids[block, k], exact[block])."""
-        dev, cfg = self.tensors, self.cfg
-        sub = subs.get_substrate(cfg.substrate)
+        key = ("slab_topk", block, k, self.cfg)
 
-        def topk(slab):
-            return eng.topk_from_loci_batch(dev, cfg, slab, k, sub)
+        def factory():
+            dev, cfg = self.tensors, self.cfg
+            sub = subs.get_substrate(cfg.substrate)
 
-        return topk
+            def topk(slab):
+                return eng.topk_from_loci_batch(dev, cfg, slab, k, sub)
+
+            return topk
+
+        return self._compile_cache.get(key, factory)
 
     def session(self, k: int = 10):
         """Open a stateful incremental-typing session (see
@@ -519,7 +554,8 @@ class CompletionIndex:
         q = torch.from_numpy(np.ascontiguousarray(qs, np.int32)).to(self.device)
         ql = torch.from_numpy(np.ascontiguousarray(qlens, np.int32)).to(
             self.device)
-        scores, sids, exact = subs.complete_batch(self.tensors, cfg, q, ql, k)
+        fn = self._fn(int(qs.shape[0]), int(qs.shape[1]), k, cfg)
+        scores, sids, exact = fn(q, ql)
         return scores.cpu().numpy(), sids.cpu().numpy(), exact.cpu().numpy()
 
     def complete_batch_padded(self, qs: np.ndarray, qlens: np.ndarray,
@@ -595,11 +631,21 @@ class CompletionIndex:
             cand_g = np.concatenate(
                 [cand_g, np.where(o_valid, ov.ov_grank[o_sid0],
                                   eng.INT_MAX).astype(np.int32)], axis=1)
-        sub = subs.get_substrate(self.cfg.substrate)
-        scores, granks = eng.merge_overlay_topk(
-            _tensor(cand_s, self.device), _tensor(cand_g, self.device), k,
-            sub)
+        fn = self._merge_fn(cand_s.shape[0], cand_s.shape[1], k)
+        scores, granks = fn(_tensor(cand_s, self.device),
+                            _tensor(cand_g, self.device))
         return scores.cpu().numpy(), granks.cpu().numpy()
+
+    def _merge_fn(self, B: int, C: int, k: int):
+        """The overlay merge (sort by global rank, then the substrate's
+        top-k) for one candidate shape."""
+        key = ("overlay_merge", B, C, k, self.cfg)
+
+        def factory():
+            sub = subs.get_substrate(self.cfg.substrate)
+            return lambda s, g: eng.merge_overlay_topk(s, g, k, sub)
+
+        return self._compile_cache.get(key, factory)
 
     def complete(self, queries: list[str | bytes], k: int = 10):
         """Top-k completions for a batch of query strings.

@@ -41,7 +41,8 @@ import zlib
 import numpy as np
 import torch
 
-from repro_torch.api.index import CompletionIndex, bucket_size
+from repro_torch.api.compile_cache import CompileCache, bucket_size
+from repro_torch.api.index import CompletionIndex
 from repro_torch.api.spec import IndexSpec
 from repro_torch.core.alphabet import pad_queries
 from repro_torch.core.engine import substrate as subs
@@ -268,7 +269,8 @@ def _data_coordinate(mesh, data_axes) -> tuple[int, int]:
 
 def sharded_complete(trie: DeviceTrie, cfg: EngineConfig, qs, qlens, k: int,
                      *, mesh, sid_stride: int, data_axes=("data",),
-                     model_axis: str = "model", empty: bool = False):
+                     model_axis: str = "model", empty: bool = False,
+                     n_real: int | None = None):
     """Global top-k over a DeviceMesh: this rank's shard answers its slice
     of the batch, one all-gather over the model axis and the substrate
     merge give the slice's global top-k, and one all-gather over the data
@@ -276,9 +278,12 @@ def sharded_complete(trie: DeviceTrie, cfg: EngineConfig, qs, qlens, k: int,
 
     trie: this rank's shard (padded to the shared shapes, on its device);
     qs int32[B, L] / qlens int32[B]: the global batch, the same on every
-    rank, with B a multiple of the data ranks; ``empty``: the shard got
-    no string and answers nothing.  Returns (scores[B, k],
-    global_sids[B, k])."""
+    rank, with B a multiple of the data ranks, its first ``n_real`` rows
+    real (all when None); ``empty``: the shard got no string and answers
+    nothing.  Returns (scores[B, k], global_sids[B, k], inexact): the last
+    is this rank's count (a 0-d tensor on its device) of its shard's
+    answers to real rows that came back inexact (0 for an empty
+    shard)."""
     import torch.distributed as dist
 
     _mesh_axes(mesh, model_axis, data_axes)
@@ -291,14 +296,17 @@ def sharded_complete(trie: DeviceTrie, cfg: EngineConfig, qs, qlens, k: int,
     model = mesh.get_group(model_axis)
     shard = dist.get_rank(model)
     sub = subs.get_substrate(cfg.substrate)
+    inexact = torch.zeros((), dtype=torch.int64, device=qs.device)
     if empty:
         scores = torch.full((b, k), -1, dtype=torch.int32, device=qs.device)
         gsids = scores.clone()
     else:
-        scores, sids, _ = subs.complete_batch(
+        scores, sids, exact = subs.complete_batch(
             trie, cfg, qs[d * b:(d + 1) * b], qlens[d * b:(d + 1) * b], k,
             sub)
         gsids = _rebase(sids, shard, sid_stride)
+        real = B if n_real is None else n_real
+        inexact = (~exact[:max(0, min(b, real - d * b))]).sum()
     top_s, top_i = merge_shard_topk(torch.stack(_all_gather(scores, model)),
                                     torch.stack(_all_gather(gsids, model)),
                                     k, sub)
@@ -307,7 +315,20 @@ def sharded_complete(trie: DeviceTrie, cfg: EngineConfig, qs, qlens, k: int,
         group = mesh.get_group(name)
         top_s = torch.cat(_all_gather(top_s, group))
         top_i = torch.cat(_all_gather(top_i, group))
-    return top_s, top_i
+    return top_s, top_i, inexact
+
+
+def _sum_over_mesh(n: torch.Tensor, mesh, model_axis: str,
+                   data_axes) -> int:
+    """``n`` (a 0-d tensor on this rank's device) summed over every rank
+    of the mesh: over the model group, then over each data axis's
+    group."""
+    import torch.distributed as dist
+
+    total = n.reshape(1).to(torch.int64)
+    for name in (model_axis, *data_axes):
+        dist.all_reduce(total, group=mesh.get_group(name))
+    return int(total.item())
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +414,11 @@ class ShardedCompletionIndex:
         self.spec = spec.validate_sharded()
         self.shards = list(shards)
         #: shard answers returned inexact (no widened retry), summed over
-        #: every lookup since the index was made (this rank's, over a mesh)
+        #: every lookup since the index was made (over a mesh, summed over
+        #: every rank, so each rank reports the whole mesh's count)
         self.inexact = 0
+        #: the local mode's prepared batch entry points, by (B, L, k, cfg)
+        self._local_cache = CompileCache(maxsize=16)
         if mesh is None:
             devices = {ix.device for ix in self.shards}
             if len(devices) != 1:
@@ -544,33 +568,53 @@ class ShardedCompletionIndex:
         return self.shard_strings[shard][sid].decode("utf-8",
                                                      errors="replace")
 
+    def _local_fn(self, B: int, L: int, k: int):
+        """The local mode's entry point for one bucketed batch shape:
+        (qs, qlens) on the device -> (scores[B, k], gsids[B, k], the
+        non-empty shards' exact flags [S', B]): every shard's tables in
+        turn with the merged config, the sids rebased, one merge."""
+        key = (B, L, k, self.cfg)
+
+        def factory():
+            cfg, stride = self.cfg, self.stride
+            sub = subs.get_substrate(cfg.substrate)
+            tries, empty, device = self.shard_tries, self.empty, self.device
+
+            def run(q, ql):
+                per_s, per_i, exact = [], [], []
+                for s, t in enumerate(tries):
+                    if empty[s]:
+                        none = torch.full((B, k), -1, dtype=torch.int32,
+                                          device=device)
+                        per_s.append(none)
+                        per_i.append(none)
+                        continue
+                    scores, sids, ex = subs.complete_batch(t, cfg, q, ql, k,
+                                                           sub)
+                    per_s.append(scores)
+                    per_i.append(_rebase(sids, s, stride))
+                    exact.append(ex)
+                top_s, top_i = merge_shard_topk(torch.stack(per_s),
+                                                torch.stack(per_i), k, sub)
+                return top_s, top_i, exact
+
+            return run
+
+        return self._local_cache.get(key, factory)
+
     def _complete_local(self, qs, qlens, k: int, n_real: int):
-        """Answer a padded query batch without a mesh: every shard's
-        tables in turn with the merged config, the sids rebased, one
-        merge; the batch is bucketed up to a power of two (at least 8)."""
+        """Answer a padded query batch without a mesh; the batch is
+        bucketed up to a power of two (at least 8) so shapes re-hit the
+        cache."""
         B = bucket_size(n_real)
         qs_p = np.zeros((B, qs.shape[1]), np.int32)
         qlens_p = np.zeros((B,), np.int32)
         qs_p[:n_real], qlens_p[:n_real] = qs, qlens
-        q = torch.from_numpy(qs_p).to(self.device)
-        ql = torch.from_numpy(qlens_p).to(self.device)
-        sub = subs.get_substrate(self.cfg.substrate)
-        per_s, per_i, exact = [], [], []
-        for s, t in enumerate(self.shard_tries):
-            if self.empty[s]:
-                none = torch.full((B, k), -1, dtype=torch.int32,
-                                  device=self.device)
-                per_s.append(none)
-                per_i.append(none)
-                continue
-            scores, sids, ex = subs.complete_batch(t, self.cfg, q, ql, k, sub)
-            per_s.append(scores)
-            per_i.append(_rebase(sids, s, self.stride))
-            exact.append(ex[:n_real])
-        top_s, top_i = merge_shard_topk(torch.stack(per_s),
-                                        torch.stack(per_i), k, sub)
+        fn = self._local_fn(B, qs.shape[1], k)
+        top_s, top_i, exact = fn(torch.from_numpy(qs_p).to(self.device),
+                                 torch.from_numpy(qlens_p).to(self.device))
         if exact:
-            self.inexact += int((~torch.stack(exact)).sum())
+            self.inexact += int((~torch.stack(exact)[:, :n_real]).sum())
         return top_s[:n_real], top_i[:n_real]
 
     def _complete_mesh(self, qs, qlens, k: int, n_real: int):
@@ -579,12 +623,15 @@ class ShardedCompletionIndex:
         qs_p = np.zeros((B, qs.shape[1]), np.int32)
         qlens_p = np.zeros((B,), np.int32)
         qs_p[:n_real], qlens_p[:n_real] = qs, qlens
-        scores, gsids = sharded_complete(
+        scores, gsids, inexact = sharded_complete(
             self.tensors, self.cfg, torch.from_numpy(qs_p).to(self.device),
             torch.from_numpy(qlens_p).to(self.device), k, mesh=self.mesh,
             sid_stride=self.stride, data_axes=self.data_axes,
             model_axis=self.model_axis,
-            empty=self.empty[_model_rank(self.mesh, self.model_axis)])
+            empty=self.empty[_model_rank(self.mesh, self.model_axis)],
+            n_real=n_real)
+        self.inexact += _sum_over_mesh(inexact, self.mesh, self.model_axis,
+                                       self.data_axes)
         return scores[:n_real], gsids[:n_real]
 
     def complete(self, queries, k: int = 10):

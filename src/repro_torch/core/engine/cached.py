@@ -36,10 +36,17 @@ def gather_cached(t: DeviceTrie, loci: torch.Tensor):
     locus slot is empty, loci-major/K-minor candidate order."""
     if pk.is_packed(t):
         return pk.gather_cached(t, loci)
+    return gather_dense(t.topk_score, t.topk_sid, loci)
+
+
+def gather_dense(topk_score: torch.Tensor, topk_sid: torch.Tensor,
+                 loci: torch.Tensor):
+    """:func:`gather_cached` over a dense cache given as its two tables,
+    topk_score/topk_sid int32[N, K]."""
     valid = loci >= 0
     n = torch.where(valid, loci, 0).long()
-    sc = torch.where(valid[..., None], t.topk_score[n], NEG_ONE)
-    si = torch.where(valid[..., None], t.topk_sid[n], NEG_ONE)
+    sc = torch.where(valid[..., None], topk_score[n], NEG_ONE)
+    si = torch.where(valid[..., None], topk_sid[n], NEG_ONE)
     flat = tuple(loci.shape[:-1]) + (-1,)
     return sc.reshape(flat), si.reshape(flat)
 
@@ -64,11 +71,23 @@ def cached_topk(t: DeviceTrie, loci: torch.Tensor, k: int):
     k >= F*K the whole union is sorted and the rest padded with -1."""
     global calls
     calls += 1
-    flat_s, flat_i = gather_cached(t, loci)
+    return _select_padded(*gather_cached(t, loci), k)
+
+
+def dense_cached_topk(topk_score: torch.Tensor, topk_sid: torch.Tensor,
+                      loci: torch.Tensor, k: int):
+    """:func:`cached_topk` over a dense cache given as its two tables."""
+    global calls
+    calls += 1
+    return _select_padded(*gather_dense(topk_score, topk_sid, loci), k)
+
+
+def _select_padded(flat_s: torch.Tensor, flat_i: torch.Tensor, k: int):
+    """Top-k of a candidate union, padded with -1 past its width."""
     width = int(flat_s.shape[1])
     s, p = select_topk(flat_s, flat_i, min(k, width))
     if k > width:
-        pad = torch.full((int(loci.shape[0]), k - width), NEG_ONE,
-                         dtype=torch.int32, device=loci.device)
+        pad = torch.full((int(flat_s.shape[0]), k - width), NEG_ONE,
+                         dtype=torch.int32, device=flat_s.device)
         s, p = torch.cat([s, pad], dim=1), torch.cat([p, pad], dim=1)
     return s, p

@@ -13,7 +13,8 @@ A substrate bundles the engine's batched hot primitives behind one seam:
   merge), when the index carries a cache and k fits it;
 - ``beam_topk_batch`` — the beam phase 2 otherwise.
 
-- :class:`TorchSubstrate` (``"torch"``) is the plain PyTorch reference:
+- :class:`Substrate` (``"torch"``; ``TorchSubstrate`` is its other name)
+  is the plain PyTorch reference:
   the frontier DP of :mod:`~repro_torch.core.engine.locus` for every kind,
   the cached merge of :mod:`~repro_torch.core.engine.cached` and the
   batched priority search of :mod:`~repro_torch.core.engine.beam`.
@@ -34,7 +35,9 @@ this is no fallback from a kernel.  A session's phase 2 runs on the
 kernels.
 
 ``resolve_substrate("auto", device)`` picks ``cuda`` on a CUDA device and
-``torch`` on the CPU.
+``torch`` on the CPU.  Substrates live in a registry, as in the JAX
+package: a new backend is ``register_substrate("<name>", MySubstrate())``
+away, and a name registered twice raises.
 """
 
 from __future__ import annotations
@@ -46,8 +49,9 @@ from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import DeviceTrie, EngineConfig
 
 
-class TorchSubstrate:
-    """Plain PyTorch reference substrate (the analogue of ``"jnp"``)."""
+class Substrate:
+    """Plain PyTorch reference substrate (the analogue of ``"jnp"``), and
+    the base every substrate extends."""
 
     name = "torch"
 
@@ -86,7 +90,11 @@ class TorchSubstrate:
                                 device=loci.device)
 
 
-class CudaSubstrate(TorchSubstrate):
+#: the name this class had before the registry came
+TorchSubstrate = Substrate
+
+
+class CudaSubstrate(Substrate):
     """Hand-written kernel substrate (the analogue of ``"pallas"``)."""
 
     name = "cuda"
@@ -141,10 +149,19 @@ class CudaSubstrate(TorchSubstrate):
 # registry
 # ---------------------------------------------------------------------------
 
-_SUBSTRATES = {"torch": TorchSubstrate(), "cuda": CudaSubstrate()}
+_SUBSTRATES: dict[str, Substrate] = {}
 
 
-def get_substrate(name: str):
+def register_substrate(name: str, substrate: Substrate) -> Substrate:
+    """Register an execution substrate; a new backend is an additive
+    ``register_substrate("<name>", MySubstrate())`` away."""
+    if name in _SUBSTRATES:
+        raise ValueError(f"substrate {name!r} already registered")
+    _SUBSTRATES[name] = substrate
+    return substrate
+
+
+def get_substrate(name: str) -> Substrate:
     if name not in _SUBSTRATES:
         raise ValueError(
             f"unknown substrate {name!r}; registered: "
@@ -164,6 +181,10 @@ def resolve_substrate(name: str, device) -> str:
         return "cuda" if torch.device(device).type == "cuda" else "torch"
     get_substrate(name)
     return name
+
+
+register_substrate("torch", Substrate())
+register_substrate("cuda", CudaSubstrate())
 
 
 # ---------------------------------------------------------------------------

@@ -396,6 +396,14 @@ def _propagate_max_scores(parent, depth, leaf_score) -> np.ndarray:
     return max_score
 
 
+def _order2(major: np.ndarray, minor: np.ndarray) -> np.ndarray:
+    """``np.lexsort((minor, major))`` for non-negative int32 ``major`` and
+    int32 ``minor``: one stable argsort of a combined int64 key, the same
+    permutation (a tie keeps its input order either way), ~4x faster."""
+    key = (major.astype(np.int64) << 32) | (minor.astype(np.int64) + 2**31)
+    return np.argsort(key, kind="stable")
+
+
 def rebuild_edges(trie: DictTrie) -> None:
     """(Re)build dict/syn child CSRs + emission lists from parent/chr arrays."""
     n = trie.n_nodes
@@ -407,7 +415,7 @@ def rebuild_edges(trie: DictTrie) -> None:
         ids = all_ids[sel]
         p = trie.parent[ids]
         c = trie.chr_[ids]
-        order = np.lexsort((c, p))
+        order = _order2(p, c)
         ids, p, c = ids[order], p[order], c[order]
         counts = np.bincount(p, minlength=n).astype(np.int32)
         ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
@@ -419,14 +427,12 @@ def rebuild_edges(trie: DictTrie) -> None:
             trie.first_child = ptr
             trie.edge_char = c.astype(np.int32)
             trie.edge_child = ids.astype(np.int32)
+            dict_ids, dict_par = ids, p
 
-    # emission lists: dictionary children (ranked by max_score) + own leaf
-    ids = all_ids[is_child & ~trie.syn_mask]
-    p = trie.parent[ids]
-    order = np.lexsort((trie.chr_[ids], p))
-    ids, p = ids[order], p[order]
-    e_par = p
-    e_node = ids
+    # emission lists: dictionary children (ranked by max_score) + own leaf;
+    # the children in the dictionary CSR's (parent, char) order
+    e_par = dict_par
+    e_node = dict_ids
     e_score = trie.max_score[e_node]
     e_leaf = np.zeros(len(e_node), dtype=bool)
     term = np.nonzero(trie.leaf_score >= 0)[0].astype(np.int32)
@@ -434,7 +440,7 @@ def rebuild_edges(trie: DictTrie) -> None:
     e_node = np.concatenate([e_node, term])
     e_score = np.concatenate([e_score, trie.leaf_score[term]])
     e_leaf = np.concatenate([e_leaf, np.ones(len(term), dtype=bool)])
-    order = np.lexsort((-e_score, e_par))
+    order = _order2(e_par, -e_score)
     e_par, e_node, e_score, e_leaf = (
         e_par[order], e_node[order], e_score[order], e_leaf[order])
     counts = np.bincount(e_par, minlength=n).astype(np.int32)
@@ -819,13 +825,23 @@ def expand_synonyms(trie: DictTrie, rules: list[SynonymRule],
 
 
 def build_topk_cache(trie: DictTrie, k: int) -> None:
-    """Bottom-up merge of per-node top-k dictionary leaves."""
+    """Bottom-up merge of per-node top-k dictionary leaves.
+
+    A row is score-descending with its (-1, -1) slots last.  A parent row
+    nothing has been written to yet is all (-1, -1), and merging a child
+    into it gives the child's row unchanged, so that fold is a copy: most
+    nodes of a large trie are unary, and only branching and terminal
+    parents are sorted."""
     n = trie.n_nodes
     score = np.full((n, k), -1, dtype=np.int32)
     sid = np.full((n, k), -1, dtype=np.int32)
     term = trie.leaf_score >= 0
     score[term, 0] = trie.leaf_score[term]
     sid[term, 0] = trie.leaf_sid[term]
+    written = term.copy()
+    # whole rows as one element each: a copy moves 4*k bytes a row
+    row = np.dtype((np.void, 4 * k))
+    score_rows, sid_rows = score.view(row).ravel(), sid.view(row).ravel()
 
     order = np.argsort(trie.depth, kind="stable")
     max_d = int(trie.depth.max(initial=0))
@@ -849,6 +865,14 @@ def build_topk_cache(trie: DictTrie, k: int) -> None:
         for j in range(max_slot + 1):
             m = slot == j
             pj, cj = par[m], ids[m]
+            bare = ~written[pj]   # a slot's parents are distinct
+            written[pj] = True
+            copy_p, copy_c = pj[bare], cj[bare]
+            score_rows[copy_p] = score_rows[copy_c]
+            sid_rows[copy_p] = sid_rows[copy_c]
+            pj, cj = pj[~bare], cj[~bare]
+            if len(pj) == 0:
+                continue
             cat_score = np.concatenate([score[pj], score[cj]], axis=1)
             cat_sid = np.concatenate([sid[pj], sid[cj]], axis=1)
             top = np.argsort(-cat_score, axis=1, kind="stable")[:, :k]

@@ -22,6 +22,8 @@ outputs at once and makes one ctypes call.
 :func:`locus_topk_merge` launches the kernel for CUDA tensors and answers
 CPU tensors with :func:`locus_merge_plain`, the plain PyTorch version
 (:func:`repro_torch.core.engine.cached.cached_topk`).
+:func:`dense_topk_merge` is the same over a dense cache given as its two
+tables, as ``repro``'s ``ops.cached_topk_merge`` takes it.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ launches = 0
 locus_merge_plain = cached.cached_topk
 
 _V, _I = ctypes.c_void_p, ctypes.c_int
+_NAME = "locus_topk_merge"
 
 
 class _Cache(ctypes.Structure):
@@ -64,87 +67,102 @@ def launch_plan(F: int, K: int, B: int, sms: int = SMS):
     path (0 keys a lane, the candidates staged in shared memory); raises
     when those exceed what a block may have."""
     regs, threads = select_plan(F * K, B, sms)
-    if regs:
-        return regs, threads, 8 * F * (threads // 32)
-    shared = 4 * (2 * F * K + F)
+    shared = 8 * F * (threads // 32) if regs else 4 * (2 * F * K + F)
     if shared > _build.MAX_SHARED_BYTES:
         raise ValueError(
             f"locus_topk_merge: F={F}, K={K} need {shared} bytes of shared "
             f"memory per block, more than the {_build.MAX_SHARED_BYTES} a "
             "block may have")
-    return 0, threads, shared
+    return regs, threads, shared
 
 
-#: per index (keyed by the id of its score cache table, dropped when that
-#: table is freed): (the other tables it was checked with, the kernel's
-#: ``_Cache``, its address, the device index)
+#: per cache, an index's or two raw tables (keyed by the id of its score
+#: table, dropped when that table is freed): (the other tables it was
+#: checked with, the kernel's ``_Cache``, its address, the device index)
 _checked: dict[int, tuple] = {}
 
 
-def _tables(t: DeviceTrie):
-    """The checked ``_Cache`` of an index's cache tables, built and
-    validated on first use.  An entry is reused only while the very same
-    table tensors are the index's, so a freed index's pointers never
-    reach another."""
-    packed = t.pc_score is not None
-    score = t.pc_score if packed else t.topk_score
-    held = ((t.pc_sid, t.pc_base, t.c_ids, t.c_tree) if packed
-            else (t.topk_sid,))
+def _remember(score: torch.Tensor, held: tuple, build):
+    """The checked entry of a cache whose score table is ``score``:
+    reused only while the very same table tensors are the cache's, so a
+    freed index's pointers never reach another; else ``build()`` checks
+    the tables and makes the kernel's ``_Cache``."""
     entry = _checked.get(id(score))
     if entry is not None and all(a is b for a, b in zip(entry[0], held)):
         return entry
-    name = "locus_topk_merge"
-    dev = score.device
-    if packed:
-        sid, base, c_ids, tree = held
-        if not pk.is_packed(t):
-            raise ValueError(f"{name}: pc_score on an index without the "
-                             "packed layout")
-        if tree is None:
-            raise ValueError(f"{name}: a packed index needs its c_ids "
-                             "search tree (c_tree; see packed.rank_tree)")
-        _build.check_tensors(name, dev, _build.PACKED_DTYPES,
-                             pc_score=score, pc_sid=sid)
-        _build.check_tensors(name, dev, pc_base=base, c_ids=c_ids,
-                             c_tree=tree)
-        for arg, x in (("pc_base", base), ("c_ids", c_ids),
-                       ("c_tree", tree)):
-            _build.check_dtype(name, arg, x, torch.int32)
-        for arg, x in (("c_ids", c_ids), ("c_tree", tree)):
-            if x.data_ptr() % 16:
-                raise ValueError(f"{name}: {arg} is not 16-byte aligned")
-        n_c = int(c_ids.shape[0])
-        if int(score.shape[0]) != n_c:
-            raise ValueError(f"{name}: {int(score.shape[0])} cache rows "
-                             f"for {n_c} stored nodes")
-        if int(tree.shape[0]) != pk.rank_tree_size(n_c):
-            raise ValueError(f"{name}: c_tree has {int(tree.shape[0])} "
-                             f"keys, not the {pk.rank_tree_size(n_c)} of "
-                             f"{n_c} ids")
-        cache = _Cache(score.data_ptr(), sid.data_ptr(), base.data_ptr(),
-                       c_ids.data_ptr(), tree.data_ptr(), 1,
-                       int(score.shape[1]),
-                       _build.is_u16(name, "pc_score", score),
-                       _build.is_u16(name, "pc_sid", sid), n_c, 0)
-    else:
-        (sid,) = held
-        if pk.is_packed(t) or int(score.shape[0]) != int(t.depth.shape[0]):
-            raise ValueError(f"{name}: the index carries no top-K cache")
-        _build.check_tensors(name, dev, topk_score=score, topk_sid=sid)
-        _build.check_dtype(name, "topk_score", score, torch.int32)
-        _build.check_dtype(name, "topk_sid", sid, torch.int32)
-        cache = _Cache(score.data_ptr(), sid.data_ptr(), None, None, None,
-                       0, int(score.shape[1]), 0, 0, 0, 0)
+    cache = build()
+    sid = held[0]
     if score.dim() != 2 or sid.shape != score.shape \
             or not 0 < score.numel() < 2**31:
-        raise ValueError(f"{name}: cache tables {tuple(score.shape)} and "
+        raise ValueError(f"{_NAME}: cache tables {tuple(score.shape)} and "
                          f"{tuple(sid.shape)} must be one non-empty [rows, "
                          "K] shape of fewer than 2^31 entries")
-    entry = (held, cache, ctypes.addressof(cache), dev.index)
+    entry = (held, cache, ctypes.addressof(cache), score.device.index)
     key = id(score)
     _checked[key] = entry
     weakref.finalize(score, _checked.pop, key, None)
     return entry
+
+
+def _dense_tables(score: torch.Tensor, sid: torch.Tensor):
+    """The checked ``_Cache`` of a dense cache's two tables."""
+
+    def build():
+        _build.check_tensors(_NAME, score.device, topk_score=score,
+                             topk_sid=sid)
+        _build.check_dtype(_NAME, "topk_score", score, torch.int32)
+        _build.check_dtype(_NAME, "topk_sid", sid, torch.int32)
+        return _Cache(score.data_ptr(), sid.data_ptr(), None, None, None,
+                      0, int(score.shape[1]), 0, 0, 0, 0)
+
+    return _remember(score, (sid,), build)
+
+
+def _tables(t: DeviceTrie):
+    """The checked ``_Cache`` of an index's cache tables, either layout,
+    built and validated on first use."""
+    if t.pc_score is None:
+        if pk.is_packed(t) or t.topk_score is None \
+                or int(t.topk_score.shape[0]) != int(t.depth.shape[0]):
+            raise ValueError(f"{_NAME}: the index carries no top-K cache")
+        return _dense_tables(t.topk_score, t.topk_sid)
+    score = t.pc_score
+    held = (t.pc_sid, t.pc_base, t.c_ids, t.c_tree)
+
+    def build():
+        sid, base, c_ids, tree = held
+        if not pk.is_packed(t):
+            raise ValueError(f"{_NAME}: pc_score on an index without the "
+                             "packed layout")
+        if tree is None:
+            raise ValueError(f"{_NAME}: a packed index needs its c_ids "
+                             "search tree (c_tree; see packed.rank_tree)")
+        dev = score.device
+        _build.check_tensors(_NAME, dev, _build.PACKED_DTYPES,
+                             pc_score=score, pc_sid=sid)
+        _build.check_tensors(_NAME, dev, pc_base=base, c_ids=c_ids,
+                             c_tree=tree)
+        for arg, x in (("pc_base", base), ("c_ids", c_ids),
+                       ("c_tree", tree)):
+            _build.check_dtype(_NAME, arg, x, torch.int32)
+        for arg, x in (("c_ids", c_ids), ("c_tree", tree)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{_NAME}: {arg} is not 16-byte aligned")
+        n_c = int(c_ids.shape[0])
+        if int(score.shape[0]) != n_c:
+            raise ValueError(f"{_NAME}: {int(score.shape[0])} cache rows "
+                             f"for {n_c} stored nodes")
+        if int(tree.shape[0]) != pk.rank_tree_size(n_c):
+            raise ValueError(f"{_NAME}: c_tree has {int(tree.shape[0])} "
+                             f"keys, not the {pk.rank_tree_size(n_c)} of "
+                             f"{n_c} ids")
+        return _Cache(score.data_ptr(), sid.data_ptr(), base.data_ptr(),
+                      c_ids.data_ptr(), tree.data_ptr(), 1,
+                      int(score.shape[1]),
+                      _build.is_u16(_NAME, "pc_score", score),
+                      _build.is_u16(_NAME, "pc_sid", sid), n_c, 0)
+
+    return _remember(score, held, build)
 
 
 _launch = None
@@ -164,18 +182,34 @@ def locus_topk_merge(t: DeviceTrie, loci: torch.Tensor, k: int):
     """loci int32[B, F] -> (scores[B, k], sids[B, k]) from the index's
     cache, either layout: the kernel on CUDA tensors, the plain version
     on CPU tensors."""
-    global launches
     if loci.is_cpu:
         return locus_merge_plain(t, loci, k)
-    _, cache, addr, dev = _tables(t)
+    return _merge(_tables(t), loci, k)
+
+
+def dense_topk_merge(topk_score: torch.Tensor, topk_sid: torch.Tensor,
+                     loci: torch.Tensor, k: int):
+    """:func:`locus_topk_merge` over a dense cache given as its two
+    tables, topk_score/topk_sid int32[N, K] (``repro``'s
+    ``ops.cached_topk_merge``): the same kernel, or on CPU tensors
+    :func:`repro_torch.core.engine.cached.dense_cached_topk`."""
+    if loci.is_cpu:
+        return cached.dense_cached_topk(topk_score, topk_sid, loci, k)
+    return _merge(_dense_tables(topk_score, topk_sid), loci, k)
+
+
+def _merge(entry, loci: torch.Tensor, k: int):
+    """One launch over a checked cache entry."""
+    global launches
+    _, cache, addr, dev = entry
     if loci.get_device() != dev or loci.dtype is not torch.int32 \
             or loci.dim() != 2 or not loci.is_contiguous():
         raise ValueError(
-            f"locus_topk_merge: loci must be a contiguous int32 [B, F] "
+            f"{_NAME}: loci must be a contiguous int32 [B, F] "
             f"tensor on cuda:{dev}; got {loci.dtype} "
             f"{tuple(loci.shape)} on {loci.device}")
     if k < 1:
-        raise ValueError(f"locus_topk_merge: k must be >= 1, got {k}")
+        raise ValueError(f"{_NAME}: k must be >= 1, got {k}")
     B, F = loci.shape
     regs, threads, shared = launch_plan(F, cache.K, B, _build.sm_count(dev))
     out = loci.new_empty((2, B, k))   # int32, on loci's device

@@ -19,6 +19,7 @@ from repro.core import make_rules
 from repro.data.strings import make_dblp, make_usps
 from repro_torch.core import trie_build as ptb
 from repro_torch.core.engine.structs import DeviceTrie
+from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ["plain", "tt", "et", "ht"]
 

@@ -38,6 +38,7 @@ from repro_torch.core.engine import locus
 from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.substrate import complete_batch, get_substrate
 from repro_torch.kernels import locus_dp, trie_walk
+from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ["plain", "tt", "et", "ht"]
 # the cases of tests/test_modes.py: typos of every kind around a rule

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, runs
-on the CUDA device unless told otherwise, and raises on every option
-outside the ported slices (the LM, recsys and GNN archs)."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+do ``chip_smoke.py`` and the port's examples), runs on the CUDA device
+unless told otherwise, and raises on every option outside the ported
+slices (the LM, recsys and GNN archs)."""
 
 import os
 import pkgutil
@@ -15,11 +16,14 @@ import repro_torch as rt
 from repro_torch.configs import get_arch
 from repro_torch.core.engine.substrate import resolve_substrate
 from repro_torch.core.trie_build import make_rules
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 PAPER = (["andrew pavlo", "andrew parker", "william smith"], [50, 40, 20],
          [("andy", "andrew"), ("bill", "william")])
 FORBIDDEN = ("jax", "jaxlib", "repro")
+EXAMPLES = ("examples/torch_quickstart.py",
+            "examples/torch_serve_autocomplete.py")
 
 
 def _run(args, cwd, with_src=True):
@@ -34,11 +38,16 @@ def test_port_and_chip_smoke_import_no_jax():
     pkg = ROOT / "src" / "repro_torch"
     mods = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages([str(pkg)], "repro_torch.")]
-    assert "repro_torch.kernels.locus_dp" in mods
+    for mod in ("repro_torch.kernels.locus_dp", "repro_torch.kernels.ops",
+                "repro_torch.api.compile_cache", "repro_torch.core.oracle",
+                "repro_torch.core.api", "repro_torch.analysis.shm",
+                "repro_torch.analysis.__main__"):
+        assert mod in mods, mod
     code = (
         "import importlib, runpy, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        f"for p in {EXAMPLES!r}: runpy.run_path(p, run_name='example')\n"
         "print('LOADED', sorted(m for m in sys.modules\n"
         f"      if m.split('.')[0] in {FORBIDDEN!r}))\n")
     out = _run(["-c", code], ROOT)
@@ -48,6 +57,14 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def test_chip_smoke_source_imports_only_the_port():
     for line in (ROOT / "chip_smoke.py").read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]):
+            assert words[1].split(".")[0] not in FORBIDDEN, line
+
+
+@pytest.mark.parametrize("path", EXAMPLES)
+def test_example_source_imports_only_the_port(path):
+    for line in (ROOT / path).read_text().splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
             assert words[1].split(".")[0] not in FORBIDDEN, line
@@ -111,11 +128,16 @@ def test_no_fallback_between_kernel_and_plain_version():
                 "kernels/beam_topk.py", "kernels/topk_select.py",
                 "kernels/locus_merge.py", "kernels/candidate_topk.py",
                 "kernels/embedding_bag.py", "kernels/ops.py",
-                "core/engine/substrate.py",
+                "kernels/__init__.py", "core/engine/substrate.py",
+                "core/engine/__init__.py",
                 "core/engine/locus.py", "core/engine/beam.py",
                 "core/engine/packed.py", "core/engine/cached.py",
                 "core/engine/incremental.py", "core/engine/overlay.py",
-                "api/index.py", "api/session.py", "serving/scheduler.py",
-                "core/distributed.py", "launch/serve.py"):
+                "api/index.py", "api/compile_cache.py", "api/session.py",
+                "serving/scheduler.py", "core/distributed.py",
+                "core/__init__.py", "core/api.py", "core/oracle.py",
+                "launch/serve.py"):
         text = (ROOT / "src" / "repro_torch" / mod).read_text()
         assert "try:" not in text, mod
+    for path in EXAMPLES:
+        assert "try:" not in (ROOT / path).read_text(), path

@@ -5,14 +5,15 @@ Each workload runs through the port's ``main(argv)`` and through
 ``repro``'s workload function on the same arguments; the JSON lines must
 have the same keys and the same deterministic numbers (kind, strings,
 queries, keystrokes, hit rate, bit-identity, lost keystrokes, ...), and
-the launcher's own checks must hold.
+the launcher's own checks must hold.  The churn workload and the
+launcher's check up to ties are in ``tests/test_torch_launch_churn.py``.
 """
 
 import argparse
 import json
 
-import numpy as np
 import pytest
+import torch
 
 import repro_torch as rt
 from repro.configs import get_arch as jax_arch
@@ -20,9 +21,8 @@ from repro import serving as jax_serving
 from repro.api import IndexSpec as JaxSpec
 from repro.api import build_index as jax_build
 from repro.launch import serve as jax_serve
-from repro_torch.core.trie_build import make_rules
-from repro_torch.data import strings as port_strings
 from repro_torch.launch import serve
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARGS = ["--arch", "autocomplete-usps", "--n-strings", "1000",
         "--device", "cpu"]
@@ -61,8 +61,17 @@ def _jax(argv):
     return fn(jax_arch(args.arch), ns)
 
 
-@pytest.mark.parametrize("workload", list(WORKLOADS))
+# (the churn workload is the same test's case in
+# tests/test_torch_launch_churn.py: one file would take longer than a
+# minute, repro re-jitting every shape after its compaction)
+@pytest.mark.parametrize("workload", ["batch", "keystroke", "zipf"])
 def test_workload_equals_repro(workload, capsys):
+    check_workload(workload, capsys)
+
+
+def check_workload(workload, capsys):
+    """The port's JSON line for ``workload`` against repro's: the same
+    keys, the deterministic numbers equal, the launcher's checks held."""
     extra, same = WORKLOADS[workload]
     argv = ARGS + ["--workload", workload] + extra
     out = serve.main(argv)
@@ -98,32 +107,6 @@ def test_sessions_without_events_release_their_lanes():
     jax_serve._replay_batched(jx, events, 3)
     with pytest.raises(jax_serving.SchedulerOverloaded, match="lanes"):
         jax_serve._replay_batched(jx, events, 3)
-
-
-def test_churn_verifies_up_to_ties():
-    """On tie-heavy scores the overlay-merged answer orders a tie by
-    string, the rebuilt index's beam by its search order (as in repro,
-    whose churn check then fails): the launcher's check holds the two
-    equal up to that order (k = 40 keeps every match, k = 4 cuts the
-    ties), and still fails a changed score or string."""
-    ds = port_strings.make_usps(200, seed=1)
-    scores = np.random.default_rng(1).choice([5, 9], 200)
-    idx = rt.build_index(ds.strings, scores, make_rules(ds.rules),
-                         kind="et", device="cpu")
-    idx.insert(b"zz~trending-0", 5)
-    idx.delete(idx.strings[3])
-    probes = [b"a", b"b", b"d", b"j"]
-    pre = {k: idx.complete(probes, k=k) for k in (4, 40)}
-    idx.compact()
-    for k in (4, 40):
-        post = idx.complete(probes, k=k)
-        assert pre[k] != post and serve._same_up_to_ties(pre[k], post, k)
-    rescored = [list(r) for r in post]
-    rescored[0][0] = (rescored[0][0][0] - 1, rescored[0][0][1])
-    renamed = [list(r) for r in post]
-    renamed[1][-1] = (renamed[1][-1][0], "not in the dictionary")
-    for wrong in (rescored, renamed):
-        assert not serve._same_up_to_ties(pre[40], wrong, 40)
 
 
 def test_save_load_and_substrates(tmp_path, capsys):

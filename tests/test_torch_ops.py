@@ -30,6 +30,7 @@ from repro.kernels.candidate_topk import candidate_topk as pallas_topk
 from repro_torch.kernels import candidate_topk as ct
 from repro_torch.kernels import embedding_bag as eb
 from repro_torch.kernels import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 NEG_FILL = np.float32(-3.0e38)
 

@@ -33,6 +33,7 @@ from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.structs import DeviceTrie
 from repro_torch.core.engine.substrate import complete_batch, get_substrate
 from repro_torch.kernels import beam_topk, locus_dp, ref as tref
+from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ["plain", "tt", "et", "ht"]
 PAPER = (["andrew pavlo", "andrew parker", "andrew packard", "william smith",

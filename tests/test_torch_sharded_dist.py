@@ -7,8 +7,10 @@ the global top-k: equal, in scores, strings and order, to the port's
 local mode and to ``repro``'s local mode (``repro``'s own mesh path needs
 a jax with ``shard_map``).  The ranks also save over the mesh, load the
 directory back over the mesh, and refuse a directory of another shard
-count with ``repro``'s ``ValueError``.  Each test joins its ranks within
-its own timeout.
+count with ``repro``'s ``ValueError``.  A case with a small ``max_steps``
+(shard answers cut short) holds ``ShardedCompletionIndex.inexact``, summed
+over every rank, against the local mode's count after the same queries.
+Each test joins its ranks within its own timeout.
 """
 
 import json
@@ -25,6 +27,7 @@ import repro_torch as rt
 from repro.core import distributed as jax_dist
 from repro.core import make_rules as jax_rules
 from repro_torch.core.trie_build import make_rules
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 JOIN_TIMEOUT_S = 90
@@ -52,9 +55,10 @@ mesh = init_device_mesh("cpu", tuple(a["shape"]),
 kw = dict(mesh=mesh, data_axes=tuple(a["data_axes"]), device="cpu")
 idx = rt.ShardedCompletionIndex(a["strings"], a["scores"],
                                 make_rules(a["rules"]), kind="et",
-                                cache_k=a["cache_k"], **kw)
+                                cache_k=a["cache_k"],
+                                max_steps=a["max_steps"], **kw)
 out = {"k_small": idx.complete(a["queries"], k=3),
-       "k_big": idx.complete(a["queries"], k=6),
+       "k_big": idx.complete(a["queries"], k=6), "inexact": idx.inexact,
        "stride": idx.stride, "held": [s is not None for s in idx.shards]}
 idx.save(a["saved"])
 out["loaded"] = rt.ShardedCompletionIndex.load(a["saved"], **kw).complete(
@@ -77,7 +81,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_ranks(tmp_path, shape, names, data_axes):
+def _run_ranks(tmp_path, shape, names, data_axes, max_steps):
     """Start one process a rank, join them all within JOIN_TIMEOUT_S, and
     return each rank's results."""
     other = tmp_path / "other"
@@ -90,6 +94,7 @@ def _run_ranks(tmp_path, shape, names, data_axes):
     a = dict(port=_free_port(), world=world, shape=shape, names=names,
              data_axes=data_axes, strings=STRINGS, scores=SCORES,
              rules=RULES, queries=QUERIES, cache_k=CACHE_K,
+             max_steps=max_steps,
              saved=str(tmp_path / "saved"), other=str(other),
              out=str(tmp_path))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
@@ -112,37 +117,45 @@ def _run_ranks(tmp_path, shape, names, data_axes):
 
 
 @lru_cache(maxsize=None)
-def _local(n_shards):
-    """The port's local mode and its answers at k = 3 and 6, held against
-    repro's local mode."""
+def _local(n_shards, max_steps):
+    """The port's local mode, its answers at k = 3 and 6 held against
+    repro's local mode, and its ``inexact`` count after them."""
     local = rt.ShardedCompletionIndex(STRINGS, SCORES, make_rules(RULES),
                                       n_shards=n_shards, kind="et",
-                                      cache_k=CACHE_K, device="cpu")
+                                      cache_k=CACHE_K, max_steps=max_steps,
+                                      device="cpu")
     jx = jax_dist.ShardedCompletionIndex(STRINGS, SCORES, jax_rules(RULES),
                                          n_shards=n_shards, kind="et",
-                                         cache_k=CACHE_K, substrate="jnp")
+                                         cache_k=CACHE_K,
+                                         max_steps=max_steps,
+                                         substrate="jnp")
     want_small = local.complete(QUERIES, k=3)
     want_big = local.complete(QUERIES, k=6)
     assert want_small == jx.complete(QUERIES, k=3)
     assert want_big == jx.complete(QUERIES, k=6)
-    return local, want_small, want_big
+    return local, want_small, want_big, local.inexact
 
 
 def _as_rows(rows):
     return [[tuple(x) for x in r] for r in rows]
 
 
-@pytest.mark.parametrize("shape,names,data_axes", [
-    ((2,), ("model",), ()),
-    ((2, 2), ("data", "model"), ("data",)),
-], ids=["model2", "data2-model2"])
-def test_mesh_path_equals_local_modes(tmp_path, shape, names, data_axes):
+@pytest.mark.parametrize("shape,names,data_axes,max_steps", [
+    ((2,), ("model",), (), 512),
+    ((2, 2), ("data", "model"), ("data",), 512),
+    ((2, 2), ("data", "model"), ("data",), 2),
+], ids=["model2", "data2-model2", "data2-model2-inexact"])
+def test_mesh_path_equals_local_modes(tmp_path, shape, names, data_axes,
+                                      max_steps):
     n_shards = shape[-1]
-    results = _run_ranks(tmp_path, shape, names, data_axes)
-    local, want_small, want_big = _local(n_shards)
+    results = _run_ranks(tmp_path, shape, names, data_axes, max_steps)
+    local, want_small, want_big, inexact = _local(n_shards, max_steps)
+    # the beam's answers at k = 6 > cache_k are cut short at max_steps=2
+    assert (inexact > 0) == (max_steps == 2)
     for rank, res in enumerate(results):
         assert _as_rows(res["k_small"]) == want_small, rank
         assert _as_rows(res["k_big"]) == want_big, rank
+        assert res["inexact"] == inexact, rank
         assert _as_rows(res["loaded"]) == want_small, rank
         assert res["stride"] == local.stride
         assert sum(res["held"]) == 1   # each rank holds its own shard only

@@ -5,8 +5,12 @@
 unknown ones, no-op changes dropped, an ``epoch`` bumped once per real
 change), its deprecated aliases, and ``ServiceStats.mean_latency_ms`` /
 ``p99_ms()``: the same calls on both packages must accept or raise alike
-and leave the same state.  Nothing here runs a query, so no JAX code is
-compiled.
+and leave the same state.  Then the re-exports: ``repro_torch.api``,
+``.core`` (lazily) and ``.kernels`` cover ``repro``'s names, the engine's
+names are ``repro``'s with ``CudaSubstrate`` for ``PallasSubstrate``, the
+deprecated ``core.api`` shim warns and exports as ``repro``'s, the ops
+wrappers take ``repro``'s arguments, and the substrate registry raises as
+``repro``'s does.  Nothing here runs a query, so no JAX code is compiled.
 """
 
 from functools import lru_cache
@@ -21,6 +25,7 @@ from repro.serving.completion_service import ServiceStats as JaxStats
 from repro_torch.api.index import BUILD_FIELDS, RUNTIME_FIELDS
 from repro_torch.core.trie_build import make_rules
 from repro_torch.serving.completion_service import ServiceStats
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIG1 = (["andrew pavlo", "andrew parker", "andrew packard", "william smith",
          "bill of rights"], [50, 40, 30, 20, 10],
@@ -156,3 +161,127 @@ def test_service_records_mean_latency():
     assert st.n_queries == 3 and st.batches == 2
     assert st.mean_latency_ms == pytest.approx(st.total_seconds / 3 * 1e3)
     assert st.p99_ms() == max(st.latencies_ms)
+
+
+# ---------------------------------------------------------------------------
+# the public surface's re-exports, against repro's
+# ---------------------------------------------------------------------------
+
+
+def _fresh_import(name):
+    """Import ``name`` anew (its warnings raised again) and return it with
+    the warnings its import raised."""
+    import importlib
+    import sys
+    import warnings
+
+    sys.modules.pop(name, None)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mod = importlib.import_module(name)
+    return mod, [w for w in caught
+                 if issubclass(w.category, DeprecationWarning)]
+
+
+@pytest.mark.parametrize("ours,theirs", [
+    ("repro_torch.api", "repro.api"),
+    ("repro_torch.core", "repro.core"),
+    ("repro_torch.kernels", "repro.kernels")])
+def test_package_exports_cover_repros(ours, theirs):
+    import importlib
+
+    mine, ref = importlib.import_module(ours), importlib.import_module(theirs)
+    assert set(ref.__all__) <= set(mine.__all__)
+    for name in mine.__all__:
+        assert getattr(mine, name) is not None, name
+
+
+def test_engine_exports_match_repros():
+    import repro.core.engine as jeng
+    import repro_torch.core.engine as eng
+
+    want = set(jeng.__all__) - {"PallasSubstrate"} | {"CudaSubstrate"}
+    assert set(eng.__all__) == want
+    assert eng.CudaSubstrate().name == "cuda"
+    assert issubclass(eng.CudaSubstrate, eng.Substrate)
+    assert eng.get_substrate("torch").__class__ is eng.Substrate
+
+
+def test_core_resolves_the_api_lazily_without_warning():
+    import warnings
+
+    import repro_torch.api as api
+    import repro_torch.core as core
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for name in ("BuildStats", "CompletionIndex", "IndexSpec",
+                     "Session", "build_index"):
+            assert getattr(core, name) is getattr(api, name)
+    with pytest.raises(AttributeError):
+        core.not_a_name
+
+
+def test_core_api_shim_warns_and_exports_as_repros():
+    ours, ours_warned = _fresh_import("repro_torch.core.api")
+    theirs, theirs_warned = _fresh_import("repro.core.api")
+    assert len(ours_warned) == len(theirs_warned) == 1
+    assert "repro_torch.api" in str(ours_warned[0].message)
+    assert ours.__all__ == theirs.__all__
+    import repro_torch.api.index as index
+
+    assert ours._to_device is index._to_device
+
+
+@pytest.mark.parametrize("name", ["trie_walk", "locus_walk", "beam_topk",
+                                  "topk_select", "cached_topk_merge",
+                                  "cached_topk_merge_packed",
+                                  "candidate_topk", "embedding_bag",
+                                  "embedding_bag_dense"])
+def test_ops_wrappers_take_repros_arguments(name):
+    import inspect
+
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+
+    ours = inspect.signature(getattr(ops, name)).parameters
+    theirs = inspect.signature(getattr(jops, name)).parameters
+    if name in ("embedding_bag", "embedding_bag_dense", "candidate_topk"):
+        # the off-path wrappers do not take repro's block_* tiling (each
+        # CUDA kernel plans its own launch)
+        theirs = {k: v for k, v in theirs.items()
+                  if not k.startswith("block")}
+        ours = {k: v for k, v in ours.items() if not k.startswith("block")}
+    assert [(p.name, p.default) for p in ours.values()] == \
+        [(p.name, p.default) for p in theirs.values()]
+
+
+@pytest.mark.parametrize("name", ["torch", "cuda", "new"])
+def test_register_substrate_as_repro(name):
+    from repro.core.engine import substrate as jsub
+    from repro_torch.core.engine import substrate as sub
+
+    jname = {"torch": "jnp", "cuda": "pallas"}.get(name, "test-new")
+    pname = name if name != "new" else "test-new"
+    if name == "new":
+        try:
+            assert sub.register_substrate(pname, sub.Substrate()) is \
+                sub.get_substrate(pname)
+            assert jsub.register_substrate(jname, jsub.Substrate()) is \
+                jsub.get_substrate(jname)
+            assert pname in sub.available_substrates()
+            assert jname in jsub.available_substrates()
+        finally:
+            sub._SUBSTRATES.pop(pname, None)
+            jsub._SUBSTRATES.pop(jname, None)
+        assert pname not in sub.available_substrates()
+        return
+    with pytest.raises(ValueError, match="already registered"):
+        jsub.register_substrate(jname, jsub.Substrate())
+    with pytest.raises(ValueError, match="already registered"):
+        sub.register_substrate(pname, sub.Substrate())
+    with pytest.raises(ValueError, match="unknown substrate"):
+        jsub.get_substrate("nope")
+    with pytest.raises(ValueError, match="unknown substrate"):
+        sub.get_substrate("nope")
+    assert sub.TorchSubstrate is sub.Substrate
