@@ -128,10 +128,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    DeviceMesh) over the unsharded USPS ET 1M ``cache_k=16`` index as its
    one shard, its answers equal to the local mode's; (c) DBLP TT over 3
    shards saved and loaded back onto the card, answers equal; (d) the
-   launcher's ``main`` in process: a batch run at its default 100,000
-   strings that saves its container, then keystroke, zipf and churn runs
-   that load it (16 queries each for time; zipf one timed repeat, churn a
-   mutation batch every 32 events): each JSON line printed, zipf
+   launcher's ``main`` in process: batch, keystroke, zipf and churn runs
+   that load the container of its default index (100,000 strings), built
+   and saved by a worker process in phase 2 (keystroke, zipf and churn at
+   16 queries each for time; zipf one timed repeat, churn a mutation
+   batch every 32 events): each JSON line printed, zipf
    bit-identical with no fallback, churn verified with no keystroke
    lost, the batch hit rate equal to ``complete``'s on the loaded
    container;
@@ -155,9 +156,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    their answers on the batch workload equal to the originals' with the
    same kernels launching; ``kind="multiterm"`` on the JAX package's
    example (its expected answers, dense and packed) and on DBLP cut to
-   1,000 strings, dense and packed (batch against the torch substrate,
+   1,000 strings, dense and packed (built by phase 2's worker processes;
+   batch against the torch substrate,
    sessions against ``complete`` and, dense, 2 of them against the torch
    substrate's session, packed against dense; ``locus_dp`` launching);
+5b. LM serving (no completion kernel launches in it): (a) h2o-danube-1.8b
+   at full width (24 layers, 1.83 B parameters, random weights from a
+   seeded generator on the card) behind ``LMServer(n_slots=64,
+   max_len=96)`` over 128 of ``serve_lm``'s requests (8-15 tokens, 16 new
+   tokens each): every request done with 16 tokens below the vocab, and,
+   teacher-forced by one no-cache ``forward`` over each request's prompt
+   and emitted tokens, every chosen token's logit within ``LM_TF_TOL`` of
+   its position's largest (tok/s, TTFT mean and p99, ms a decode step at
+   64 lanes, ms a prefill); (b) one request of 4,200 tokens at max_len
+   4,352 (the 4,096-position ring wraps in prefill) and 16 decode steps,
+   checked the same way (prefill ms, peak device memory); (c) 2 of its
+   layers on the card and on the CPU from one numpy tree, prefill and 4
+   decode steps' logits within ``LM_CARD_CPU_TOL``; (d) the launcher's LM
+   mode for the five LM archs at their smoke configs (``--queries 16
+   --batch 8``), then granite-moe-1b-a400m at full width behind
+   ``LMServer`` on 8 requests (tokens below the vocab, logits finite);
 6. time each kernel against its plain version, its bound and (where one
    exists) a PyTorch library call at the main path's shapes (the locus DP
    also at E = 1 and 2, and the locus DP and the beam at every width the
@@ -256,6 +274,24 @@ LAUNCH_QUERIES, LAUNCH_CHURN_EVERY = 16, 32
 # the multi-term build's corpus, cut from DBLP's 24,810 strings: its
 # synthesized rules grow fast with the corpus
 N_DBLP_MULTITERM = 1_000
+# LM serving (phase 5b): h2o-danube-1.8b at full width (its config,
+# src/repro/configs/h2o_danube_1_8b.py; random weights from a seeded
+# generator) behind LMServer: 64 lanes of 96 positions, 128 of serve_lm's
+# requests (8-15 random tokens, 16 new tokens each); one request of 4,200
+# tokens at max_len 4,352 (a ring of the 4,096-position window that wraps
+# in prefill); the card against the CPU at 2 layers over 4 decode steps;
+# the launcher's LM mode at --queries 16 --batch 8; granite-moe at full
+# width on 8 requests.  A chosen token passes the teacher-forced check
+# when its logit is within LM_TF_TOL of its position's largest (logits
+# spread with a standard deviation of ~1; decode's float32 stream and
+# forward's bfloat16 one differ by up to 0.007 at 4 layers on the CPU)
+LM_ARCH, LM_MOE_ARCH = "h2o-danube-1.8b", "granite-moe-1b-a400m"
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 64, 96, 128, 16
+LM_LONG_PROMPT, LM_LONG_MAX_LEN = 4_200, 4_352
+LM_TF_TOL = 0.1
+LM_CARD_CPU_STEPS, LM_CARD_CPU_TOL = 4, 2e-2
+LM_LAUNCH_QUERIES, LM_LAUNCH_BATCH = 16, 8
+LM_MOE_REQUESTS = 8
 #: the phase-2 kernels, as the profiler names them, by launch counter
 PHASE2_KERNELS = {"beam_topk": ("beam_topk_kernel",),
                   "beam_topk_packed": ("beam_topk_kernel",),
@@ -323,7 +359,10 @@ def host_job(job):
     builds an index; ``("derive", (src, cache, compression))`` reads the
     parts at ``src`` and runs the build's last steps on a copy of its
     trie: the per-node top-K cache when ``cache``, then the packed layout
-    when ``compression == "packed"``.  Returns the step's start and end."""
+    when ``compression == "packed"``; ``("save", (strings, scores,
+    rule_pairs, spec_kw, container))`` builds an index and saves its
+    container at ``container`` (the parts written are that path).
+    Returns the step's start and end."""
     what, args, path = job
     import torch
 
@@ -334,14 +373,17 @@ def host_job(job):
 
     torch.set_num_threads(1)
     t = time.time()
-    if what == "build":
-        strings, scores, rule_pairs, spec_kw = args
+    if what in ("build", "save"):
+        strings, scores, rule_pairs, spec_kw = args[:4]
         if not len(strings):        # an empty shard, as the index builds it
             strings, scores = [""], [1]
         idx = rt.build_index(strings, scores, make_rules(rule_pairs),
                              rt.IndexSpec(**spec_kw), device="cpu")
         parts = (idx.trie, idx.rule_trie, idx.rules, idx.strings,
                  idx.scores, idx.cfg, idx.spec, idx.stats)
+        if what == "save":
+            idx.save(args[4])
+            parts = args[4]
     else:
         src, cache, compression = args
         trie, rule_trie, rules, strings, scores, cfg, spec, stats = \
@@ -700,6 +742,244 @@ def device_bytes(idx) -> int:
                if t is not None)
 
 
+
+# -- phase 5b: LM serving --------------------------------------------------------
+
+
+def teacher_gaps(params, cfg, prompts, emitted):
+    """For each request, one no-cache ``forward`` over its prompt and its
+    emitted tokens (a batch, right-padded: causal attention keeps padding
+    out of every earlier position): at every emitted position the logit
+    of the token the server chose below that position's largest logit.
+    0 where the server chose the argmax; a near-tie between the two
+    dtype paths (decode's float32 stream, forward's bfloat16) shows as a
+    small gap."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    dev = params.embed.device
+    seqs = [list(p) + list(t[:-1]) for p, t in zip(prompts, emitted)]
+    toks = torch.zeros((len(seqs), max(map(len, seqs))), dtype=torch.long)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = torch.as_tensor(s)
+    with torch.no_grad():
+        x, _ = tf.forward(params, toks.to(dev), cfg)
+        gaps = []
+        for i, (p, t) in enumerate(zip(prompts, emitted)):
+            pos = torch.arange(len(p) - 1, len(p) - 1 + len(t), device=dev)
+            logits = (x[i, pos].float()
+                      @ params.unembed.float())[:, :cfg.vocab]
+            chosen = logits[torch.arange(len(t), device=dev),
+                            torch.as_tensor(t, device=dev)]
+            gaps.append(logits.max(-1).values - chosen)
+    return torch.cat(gaps).cpu()
+
+
+def serve_requests(params, cfg, prompts, n_slots, max_len, new_tokens):
+    """``prompts`` through ``LMServer``: (done requests by rid, prefill
+    ms of each request (to its first token on the host), wall s)."""
+    import torch
+
+    from repro_torch.serving import LMServer, Request
+
+    server = LMServer(params, cfg, n_slots=n_slots, max_len=max_len)
+    prefill_ms = []
+    inner = server._prefill
+
+    def timed_prefill(tokens, slot):
+        t = time.perf_counter()
+        out = inner(tokens, slot)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    server._prefill = timed_prefill
+    for i, p in enumerate(prompts):
+        server.scheduler.submit(Request(rid=i, prompt=p,
+                                        max_new_tokens=new_tokens))
+    t = time.perf_counter()
+    done = server.run()
+    wall = time.perf_counter() - t
+    return server, sorted(done, key=lambda r: r.rid), prefill_ms, wall
+
+
+def lm_phase(dev, small: bool, counts, serve_main) -> None:
+    """Phase 5b: LM serving on the card (module docstring); raises on any
+    failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import LM_ARCHS, get_arch
+    from repro_torch.models import transformer as tf
+
+    before = counts()
+    t_phase = time.perf_counter()
+    spec = get_arch(LM_ARCH)
+    cfg = spec.make_config()
+    n_req = LM_REQUESTS // 8 if small else LM_REQUESTS
+    if small:     # a quick compile-and-check: the full width, 2 layers
+        cfg = dataclasses.replace(cfg, n_layers=2)
+
+    # (a) the full-width model behind LMServer, 128 requests over 64 lanes
+    t = time.perf_counter()
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    torch.cuda.synchronize()
+    n_params = params.n_params()
+    log(f"LM {spec.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query heads over {cfg.n_kv} KV heads, window "
+        f"{cfg.window}: {n_params} parameters ({cfg.param_dtype}; "
+        f"param_count() {cfg.param_count()}; padded vocab "
+        f"{cfg.padded_vocab}), initialised on the card in "
+        f"{time.perf_counter() - t:.3f} s")
+    rng = np.random.default_rng(0)    # serve_lm's prompts: 8-15 tokens
+    prompts = [rng.integers(0, cfg.vocab, 8 + i % 8) for i in range(n_req)]
+    server, done, prefill_ms, wall = serve_requests(
+        params, cfg, prompts, LM_SLOTS, LM_MAX_LEN, LM_NEW_TOKENS)
+    emitted = [r.tokens for r in done]
+    if len(done) != n_req or any(
+            len(t) != LM_NEW_TOKENS or max(t) >= cfg.vocab or min(t) < 0
+            for t in emitted):
+        raise AssertionError(f"LM serving: {len(done)} of {n_req} requests "
+                             f"done, token counts "
+                             f"{sorted({len(t) for t in emitted})}")
+    ttft = np.array([r.first_token_at - r.created for r in done]) * 1e3
+    # one decode step at 64 lanes, on the server's cache, by CUDA events
+    cur = torch.as_tensor(server.cur, device=dev)
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: tf.decode_step(params, server.cache, cur,
+                                                 cfg), 5)
+    gaps = teacher_gaps(params, cfg, prompts, emitted)
+    if float(gaps.max()) > LM_TF_TOL:
+        raise AssertionError(f"LM serving: a chosen token's logit "
+                             f"{float(gaps.max()):.4f} below its position's "
+                             f"largest (tolerance {LM_TF_TOL})")
+    log(f"LM serving ({n_req} requests of 8-15 tokens, {LM_NEW_TOKENS} new "
+        f"tokens each, {LM_SLOTS} lanes, max_len {LM_MAX_LEN}): "
+        f"{n_req * LM_NEW_TOKENS / wall:.1f} tok/s over {wall:.3f} s; TTFT "
+        f"mean {ttft.mean():.1f} ms, p99 {np.percentile(ttft, 99):.1f} ms; "
+        f"{step_ms:.3f} ms a decode step at {LM_SLOTS} lanes (CUDA events, "
+        f"5 steps); prefill {np.mean(prefill_ms):.3f} ms mean, "
+        f"{np.percentile(prefill_ms, 99):.3f} p99 ({len(prefill_ms)} "
+        f"prefills of one request); teacher-forced: every chosen token "
+        f"within {LM_TF_TOL} of its position's largest logit (largest gap "
+        f"{float(gaps.max()):.5f}; {int((gaps > 0).sum())} of {gaps.numel()}"
+        f" positions not the argmax); (a) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del server
+    t_phase = time.perf_counter()
+
+    # (b) one request longer than the window: the ring wraps in prefill
+    long_len = LM_LONG_PROMPT // 8 if small else LM_LONG_PROMPT
+    max_len = long_len + LM_LONG_MAX_LEN - LM_LONG_PROMPT
+    span = min(max_len, cfg.window)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    prompt = [np.random.default_rng(1).integers(0, cfg.vocab, long_len)]
+    server, done, prefill_ms, _ = serve_requests(
+        params, cfg, prompt, 1, max_len, LM_NEW_TOKENS)
+    peak = torch.cuda.max_memory_allocated()
+    gaps = teacher_gaps(params, cfg, prompt, [done[0].tokens])
+    if len(done[0].tokens) != LM_NEW_TOKENS or float(gaps.max()) > LM_TF_TOL:
+        raise AssertionError(f"LM long prompt: {len(done[0].tokens)} tokens,"
+                             f" largest gap {float(gaps.max()):.4f}")
+    log(f"LM long prompt ({long_len} tokens, max_len {max_len}: a ring of "
+        f"{span} positions, wrapped by {long_len % span} in prefill; "
+        f"{LM_NEW_TOKENS} decode steps): prefill {prefill_ms[0]:.3f} ms, "
+        f"peak device memory {peak} B, {peak - resident} B above what was "
+        f"resident before it (the weights and the earlier phases' "
+        f"indexes); teacher-forced over "
+        f"{long_len + LM_NEW_TOKENS} tokens: largest gap "
+        f"{float(gaps.max()):.5f} (tolerance {LM_TF_TOL}); (b) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del server
+    t_phase = time.perf_counter()
+
+    # (c) the card against the CPU: 2 layers at full width, one numpy tree
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    part = tf.TransformerLM(cfg2, {
+        "embed": params.embed, "final_ln": params.final_ln,
+        "unembed": params.unembed,
+        "layers": [b.tree() for b in params.blocks[:2]]})
+    tree = tf.params_to_numpy(part)
+    del params, part
+    torch.cuda.empty_cache()
+    on = {d: tf.params_from_numpy(tree, cfg2, device=d)
+          for d in (dev, torch.device("cpu"))}
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 12)))
+    worst = 0.0
+    with torch.no_grad():
+        res = {d: tf.prefill(m, toks.to(d), cfg2, 32,
+                             cache_dtype=torch.float32)
+               for d, m in on.items()}
+        for step in range(LM_CARD_CPU_STEPS + 1):
+            (lg, cg), (lc, cc) = res[dev], res[torch.device("cpu")]
+            scale = max(1.0, float(lc.abs().max()))
+            err = float((lg.cpu() - lc).abs().max()) / scale
+            worst = max(worst, err)
+            if err > LM_CARD_CPU_TOL:
+                raise AssertionError(f"LM card vs CPU, step {step}: logits "
+                                     f"differ by {err:.2e} of their scale")
+            if step == LM_CARD_CPU_STEPS:
+                break
+            nxt = lc.argmax(-1)
+            res = {d: tf.decode_step(m, res[d][1], nxt.to(d), cfg2)
+                   for d, m in on.items()}
+    log(f"LM card vs CPU ({cfg2.n_layers} layers at full width, one numpy "
+        f"tree on both): prefill of 2 x 12 tokens and "
+        f"{LM_CARD_CPU_STEPS} decode steps, logits within {worst:.2e} of "
+        f"their scale (tolerance {LM_CARD_CPU_TOL}); torch matmul "
+        f"precision {torch.get_float32_matmul_precision()!r}; (c) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del on, tree
+    t_phase = time.perf_counter()
+
+    # (d) the launcher's LM mode for every LM arch (smoke configs), then
+    # granite-moe at full width behind LMServer
+    for arch in LM_ARCHS:
+        out = serve_main(["--arch", arch, "--queries", str(LM_LAUNCH_QUERIES),
+                          "--batch", str(LM_LAUNCH_BATCH)])
+        if (out["requests"], out["tokens"]) != (
+                LM_LAUNCH_QUERIES, LM_LAUNCH_QUERIES * LM_NEW_TOKENS):
+            raise AssertionError(f"launcher {arch}: {out}")
+    spec_g = get_arch(LM_MOE_ARCH)
+    cfg_g = spec_g.make_config()
+    if small:
+        cfg_g = dataclasses.replace(cfg_g, n_layers=2)
+    t = time.perf_counter()
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg_g,
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg_g.vocab, 8 + i % 8)
+               for i in range(LM_MOE_REQUESTS)]
+    _, done, _, wall = serve_requests(params, cfg_g, prompts,
+                                      LM_MOE_REQUESTS, LM_MAX_LEN,
+                                      LM_NEW_TOKENS)
+    emitted = [r.tokens for r in done]
+    finite = bool(torch.isfinite(teacher_gaps(params, cfg_g, prompts,
+                                              emitted)).all())
+    if len(done) != LM_MOE_REQUESTS or not finite or any(
+            len(t) != LM_NEW_TOKENS or max(t) >= cfg_g.vocab for t in emitted):
+        raise AssertionError(f"LM {spec_g.arch_id}: {len(done)} requests, "
+                             f"finite logits {finite}")
+    log(f"LM {spec_g.arch_id} at full width ({cfg_g.n_layers} layers, "
+        f"{cfg_g.moe_experts} experts top-{cfg_g.moe_top_k}, "
+        f"{params.n_params()} parameters, initialised in {init_s:.3f} s): "
+        f"{LM_MOE_REQUESTS} requests, {LM_MOE_REQUESTS * LM_NEW_TOKENS} "
+        f"tokens, all < vocab {cfg_g.vocab}, logits finite; "
+        f"{LM_MOE_REQUESTS * LM_NEW_TOKENS / wall:.1f} tok/s; (d) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    if counts() != before:
+        raise AssertionError("the LM phase launched a completion kernel")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
@@ -742,6 +1022,7 @@ def main() -> int:
     n_dblp, n_usps_plain, n_usps_et = ((2_000, 5_000, 20_000) if args.small
                                        else (24_810, 100_000, 1_000_000))
     dblp = make_dblp(n_dblp, seed=0)
+    dblp_mt = make_dblp(300 if args.small else N_DBLP_MULTITERM, seed=0)
     usps_small = make_usps(n_usps_plain, seed=0)
     t = time.perf_counter()
     usps = make_usps(n_usps_et, seed=0)
@@ -764,6 +1045,9 @@ def main() -> int:
     wide_ds = dataclasses.replace(usps_small, scores=np.random.default_rng(
         6).integers(0, 2**30, len(usps_small.strings)))
 
+    launch_tmp = tempfile.TemporaryDirectory()
+    launch_container = str(Path(launch_tmp.name) / "usps.npz")
+
     def job(ds, kind, **spec_kw):
         rules = ds.rules if kind != "plain" else []
         return ("build", (ds.strings, ds.scores, rules,
@@ -784,6 +1068,16 @@ def main() -> int:
            for tie, ds in ties.items()},
         "USPS scores wide plain": job(wide_ds, "plain"),
         "USPS ET 100k cache_k=16": job(usps_small, "et", cache_k=CACHE_K),
+        # the launcher's index (phase 4c (d): --arch autocomplete-usps at
+        # its defaults), built and its container saved here
+        "USPS ET 100k container": ("save", (
+            usps_small.strings, usps_small.scores, usps_small.rules,
+            dict(kind="et"), launch_container), None),
+        # phase 5's multi-term indexes (their synthesized rules included)
+        **{f"DBLP multiterm {comp}": ("build", (
+            dblp_mt.strings, dblp_mt.scores, dblp_mt.rules,
+            dict(kind="multiterm", compression=comp)), None)
+           for comp in ("none", "packed")},
         "USPS ET packed": ("derive", (False, "packed"), "USPS et"),
         "USPS ET packed cache_k=16": ("derive", (False, "packed"),
                                       "USPS ET cache_k=16"),
@@ -897,6 +1191,9 @@ def main() -> int:
     shard_parts = [landed(f"shard {i}") for i in range(SHARDS)]
     shard_spans = [spans[f"shard {i}"] for i in range(SHARDS)]
     churn_idx = index("USPS ET 100k cache_k=16")
+    launch_path = landed("USPS ET 100k container")
+    mt_indexes = {name: index(name) for name in ("DBLP multiterm none",
+                                                 "DBLP multiterm packed")}
     # the longest chain last
     usps_et = index("USPS et")
     usps_et_p = index("USPS ET packed")
@@ -2352,28 +2649,27 @@ def main() -> int:
     del dblp_sh, loaded
     log(f"  (c) done at {time.perf_counter() - t_start:.1f} s")
 
-    # (d) the serving launcher in process: a batch run that saves its
-    # container, then keystroke, zipf and churn runs that load it
+    # (d) the serving launcher in process: batch, keystroke, zipf and
+    # churn runs that load the container of its default index (USPS ET
+    # 100k), built and saved by a worker process in phase 2
     launch_args = ["--arch", "autocomplete-usps"] + (
         ["--n-strings", str(n_usps_plain)] if args.small else [])
     launched_out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        path = str(Path(tmp) / "usps.npz")
+    with launch_tmp:
         reset_counts()
-        t = time.perf_counter()
-        launched_out["batch"] = serve_main(launch_args
-                                           + ["--save-index", path])
-        secs = {"batch": time.perf_counter() - t}
-        for w, extra in (("keystroke", []), ("zipf", ["--repeats", "1"]),
+        secs = {}
+        for w, extra in (("batch", []), ("keystroke", []),
+                         ("zipf", ["--repeats", "1"]),
                          ("churn", ["--churn-every",
                                     str(LAUNCH_CHURN_EVERY)])):
             t = time.perf_counter()
             launched_out[w] = serve_main(
-                launch_args + ["--workload", w, "--load-index", path,
-                               "--queries", str(LAUNCH_QUERIES)] + extra)
+                launch_args + ["--workload", w, "--load-index", launch_path]
+                + ([] if w == "batch" else
+                   ["--queries", str(LAUNCH_QUERIES)]) + extra)
             secs[w] = time.perf_counter() - t
         c = counts()
-        loaded = rt.CompletionIndex.load(path, device=dev)
+        loaded = rt.CompletionIndex.load(launch_path, device=dev)
         lq = make_workload(usps_small, 512, seed=1)
         rows = [r for i in range(0, len(lq), B)
                 for r in loaded.complete(lq[i:i + B], k=K)]
@@ -2390,8 +2686,11 @@ def main() -> int:
         raise AssertionError(f"launcher: {launched_out}, complete's hit "
                              f"rate {hit}, launches {c}")
     record_all(c)
+    a, b = spans["USPS ET 100k container"]
     log(f"launcher (python -m repro_torch.launch.serve {' '.join(launch_args)}"
-        f"; keystroke, zipf and churn at --queries {LAUNCH_QUERIES}, zipf "
+        f" --load-index, its container built and saved in {b - a:.1f} s by "
+        f"a worker in phase 2; keystroke, zipf and churn at --queries "
+        f"{LAUNCH_QUERIES}, zipf "
         f"--repeats 1, churn --churn-every {LAUNCH_CHURN_EVERY}): seconds "
         f"{ {w: round(x, 1) for w, x in secs.items()} }; zipf bit "
         "identical, 0 fallbacks; churn verified, 0 lost keystrokes; the "
@@ -2612,18 +2911,14 @@ def main() -> int:
         record_all(c)
     log("multiterm example (tests/test_modes.py MT_EXPECT): complete and "
         "sessions as expected, dense and packed")
-    dblp_mt = make_dblp(300 if args.small else N_DBLP_MULTITERM, seed=0)
     for comp, must in (("none", ("locus_dp", "beam_topk")),
                        ("packed", ("locus_dp_packed", "beam_topk_packed"))):
-        t = time.perf_counter()
-        idx = rt.build_index(dblp_mt.strings, dblp_mt.scores,
-                             make_rules(dblp_mt.rules),
-                             rt.IndexSpec(kind="multiterm", compression=comp),
-                             device=dev)
-        torch.cuda.synchronize()
         name = f"DBLP multiterm {comp}"
-        log(f"build {name} ({len(dblp_mt.strings)} strings, "
-            f"{len(dblp_mt.rules)} rules): {time.perf_counter() - t:.3f} s, "
+        idx = mt_indexes.pop(name)
+        a, b = spans[name]
+        log(f"{name} ({len(dblp_mt.strings)} strings, "
+            f"{len(dblp_mt.rules)} rules): built in {b - a:.3f} s by a "
+            f"phase-2 worker, "
             f"{len(idx.rules) - len(dblp_mt.rules)} rules synthesized, "
             f"{idx.stats.n_nodes} nodes, tele_width {idx.cfg.tele_width}, "
             f"branch_width {idx.cfg.branch_width}, "
@@ -2644,6 +2939,11 @@ def main() -> int:
         if comp == "packed":
             same_answers(name, "DBLP multiterm none")
         del idx
+
+    # -- phase 5b: LM serving ------------------------------------------------------
+    log(f"phase 5b at {time.perf_counter() - t_start:.1f} s")
+    lm_phase(dev, args.small, counts, serve_main)
+    log(f"LM serving done at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 6: kernel times and bounds at the main path's shapes ---------------
     log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")

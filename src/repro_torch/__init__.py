@@ -2,8 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 layout and names.  Entry points (:func:`build_index`, :func:`load_index`,
-:class:`ShardedCompletionIndex`, :class:`CompletionService`) run on the
-CUDA device unless the caller passes ``device="cpu"``.
+:class:`ShardedCompletionIndex`, :class:`CompletionService`, and LM
+serving's ``models.transformer.init_lm`` behind ``serving.LMServer``) run
+on the CUDA device unless the caller passes ``device="cpu"``.
 """
 
 from repro_torch.api import (CompletionIndex, IndexSpec, Session,

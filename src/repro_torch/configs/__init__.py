@@ -1,18 +1,23 @@
-"""Architecture registry of the port: the three autocomplete archs.
+"""Architecture registry of the port: the three autocomplete archs and the
+five LM archs.
 
-The JAX package's other archs (its LM, recsys and GNN models) are named
-here only so that asking for one raises ``NotImplementedError`` with its
-ROADMAP item, not an unknown-arch error.
+The JAX package's recsys and GNN archs are named here only so that asking
+for one raises ``NotImplementedError`` with its ROADMAP item, not an
+unknown-arch error.
 """
 
-from repro_torch.configs.autocomplete import (REGISTRY, ArchSpec,
-                                              AutocompleteConfig)
+from repro_torch.configs import (arctic_480b, autocomplete,  # noqa: F401
+                                 granite_moe_1b_a400m, h2o_danube_1_8b,
+                                 mistral_nemo_12b, qwen2_5_14b)
+from repro_torch.configs.autocomplete import AutocompleteConfig
+from repro_torch.configs.base import REGISTRY, ArchSpec, ShapeCell
 from repro_torch.not_ported import not_ported
 
-#: the JAX package's arch ids outside the autocomplete family
-OTHER_ARCHS = ("granite-moe-1b-a400m", "arctic-480b", "mistral-nemo-12b",
-               "h2o-danube-1.8b", "qwen2.5-14b", "gin-tu", "mind",
-               "sasrec", "din", "dlrm-rm2")
+#: the JAX package's arch ids the port does not run yet (recsys and GNN)
+OTHER_ARCHS = ("gin-tu", "mind", "sasrec", "din", "dlrm-rm2")
+#: the LM archs, in the JAX package's order
+LM_ARCHS = ("granite-moe-1b-a400m", "arctic-480b", "mistral-nemo-12b",
+            "h2o-danube-1.8b", "qwen2.5-14b")
 
 
 def all_archs() -> dict[str, ArchSpec]:
@@ -27,5 +32,5 @@ def get_arch(arch_id: str) -> ArchSpec:
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
 
 
-__all__ = ["ArchSpec", "AutocompleteConfig", "OTHER_ARCHS", "REGISTRY",
-           "all_archs", "get_arch"]
+__all__ = ["ArchSpec", "AutocompleteConfig", "LM_ARCHS", "OTHER_ARCHS",
+           "REGISTRY", "ShapeCell", "all_archs", "get_arch"]

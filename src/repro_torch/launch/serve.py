@@ -4,6 +4,7 @@
   python -m repro_torch.launch.serve --arch autocomplete-usps --workload keystroke
   python -m repro_torch.launch.serve --arch autocomplete-usps \\
       --device cpu --substrate torch --n-strings 3000        (on the CPU)
+  python -m repro_torch.launch.serve --arch h2o-danube-1.8b  (LM decode)
 
 The paper's end-to-end system for the autocomplete archs: build (or
 ``--load-index``) the index, replay a workload — one-shot batches, a
@@ -14,6 +15,9 @@ line of latency and throughput (Fig. 7-style numbers).  ``--substrate``
 picks the execution substrate (``torch``: the plain PyTorch versions,
 ``cuda``: the hand-written kernels, ``auto``: cuda on a CUDA device).
 The index lives on ``--device`` (CUDA unless told otherwise).
+
+For an LM arch it serves the arch's smoke config, random weights, through
+the continuous-batching ``LMServer`` (``serve_lm``).
 """
 
 from __future__ import annotations
@@ -23,13 +27,16 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.api import CompletionIndex, IndexSpec, build_index
 from repro_torch.configs import get_arch
 from repro_torch.core.trie_build import make_rules
 from repro_torch.data.strings import (DATASETS, make_keystroke_events,
                                       make_workload)
-from repro_torch.serving import BatchStats, CompletionService
+from repro_torch.models.transformer import init_lm
+from repro_torch.serving import (BatchStats, CompletionService, LMServer,
+                                 Request)
 
 
 def _make_index(spec, args):
@@ -354,6 +361,34 @@ WORKLOADS = {"batch": serve_autocomplete, "keystroke": serve_keystroke,
              "zipf": serve_zipf, "churn": serve_churn}
 
 
+def serve_lm(spec, args):
+    """The LM arch's smoke config with random weights (a generator seeded
+    0) behind ``LMServer``: ``--queries`` requests of 8-15 random tokens,
+    16 new tokens each, over ``--batch`` decode lanes."""
+    cfg = spec.make_smoke_config()
+    dev = torch.device(args.device or "cuda")
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                     device=dev)
+    server = LMServer(params, cfg, n_slots=args.batch, max_len=96)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for i in range(args.queries):
+        server.scheduler.submit(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab, 8 + i % 8),
+            max_new_tokens=16))
+    done = server.run()
+    dt = time.perf_counter() - t0
+    toks = sum(len(r.tokens) for r in done)
+    ttfts = [r.first_token_at - r.created for r in done]
+    out = {
+        "arch": spec.arch_id, "requests": len(done),
+        "tokens": toks, "tok_per_s": round(toks / dt, 1),
+        "mean_ttft_ms": round(float(np.mean(ttfts)) * 1e3, 1),
+    }
+    print(json.dumps(out))
+    return out
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -379,8 +414,8 @@ def parser() -> argparse.ArgumentParser:
                          "carried into the index's config, no effect on "
                          "the card (every table sits in device memory)")
     ap.add_argument("--device", default=None,
-                    help="device the index lives on (default: cuda; "
-                         "pass cpu on a host without one)")
+                    help="device the index or the LM lives on (default: "
+                         "cuda; pass cpu on a host without one)")
     ap.add_argument("--workload", default="batch", choices=list(WORKLOADS),
                     help="batch = one-shot query batches; keystroke = one "
                          "session typing char-by-char; zipf = many "
@@ -419,11 +454,13 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    """Run one workload; returns its JSON line's dict.  Arch ids of the
-    JAX package outside the autocomplete family raise
+    """Run one workload (an LM arch: ``serve_lm``); returns its JSON
+    line's dict.  The JAX package's recsys and GNN arch ids raise
     ``NotImplementedError``."""
     args = parser().parse_args(argv)
     spec = get_arch(args.arch)
+    if spec.family == "lm":
+        return serve_lm(spec, args)
     return WORKLOADS[args.workload](spec, args)
 
 

@@ -7,8 +7,10 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "arch": (12, "the LM, recsys and GNN archs (their models, training and "
+    "arch": (12, "the recsys and GNN archs (their models, training and "
                  "serving)"),
+    "lm_training": (12, "LM training's pieces (the loss, the optimizers "
+                        "and the mesh routes)"),
 }
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 do ``chip_smoke.py`` and the port's examples), runs on the CUDA device
 unless told otherwise, and raises on every option outside the ported
-slices (the LM, recsys and GNN archs)."""
+slices (the recsys and GNN archs, LM training)."""
 
 import os
 import pkgutil
@@ -16,6 +16,7 @@ import repro_torch as rt
 from repro_torch.configs import get_arch
 from repro_torch.core.engine.substrate import resolve_substrate
 from repro_torch.core.trie_build import make_rules
+from repro_torch.models.transformer import TransformerConfig, loss_fn
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -110,7 +111,8 @@ def test_auto_substrate_follows_the_device():
 
 
 SURFACES = [
-    ("arch", lambda i: get_arch("qwen2.5-14b")),
+    ("arch", lambda i: get_arch("sasrec")),
+    ("lm_training", lambda i: loss_fn(None, {}, TransformerConfig())),
 ]
 
 

@@ -132,6 +132,6 @@ def test_save_load_and_substrates(tmp_path, capsys):
 
 def test_other_archs_are_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 12"):
-        serve.main(["--arch", "qwen2.5-14b", "--device", "cpu"])
+        serve.main(["--arch", "sasrec", "--device", "cpu"])
     with pytest.raises(KeyError, match="unknown arch"):
         serve.main(["--arch", "no-such-arch", "--device", "cpu"])
