@@ -176,6 +176,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mode for the five LM archs at their smoke configs (``--queries 16
    --batch 8``), then granite-moe-1b-a400m at full width behind
    ``LMServer`` on 8 requests (tokens below the vocab, logits finite);
+5c. the recsys and GNN models at full width, random weights from a
+   seeded generator on the card: (a) DLRM-RM2, DIN, SASRec and MIND on
+   ``serve_p99`` (B=512, the arch's serving forward) and
+   ``retrieval_cand`` (B=1, the user function, then ``retrieval_topk``
+   over 1,000,000 candidates, k=100: ``candidate_topk`` a row, MIND's max
+   over its interests in plain PyTorch; SASRec's on a full-length
+   history, since a shorter one gives a zero user), (b) DLRM on ``serve_bulk``
+   (B=262,144), each checked for shape and finite values (retrieval:
+   distinct ids, scores descending), with ms, rows a second and peak
+   memory; rows 12-13 launch there (DIN's pooled history is
+   ``embedding_bag_dense``), counted, no plain version run; (c)
+   ``candidate_topk`` at DLRM's, DIN's (D=18) and SASRec's (D=50)
+   retrieval shapes (DIN's and SASRec's user rows, checked nonzero, and a
+   random query) and DIN's pooled history ``[512, 100]`` through
+   ``embedding_bag_dense`` against their plain versions; (d) gin-tu (5
+   layers, d_hidden 64) on ``full_graph_sm``, ``molecule`` (128 graphs)
+   and ``ogb_products`` (2,449,029 nodes, 61,859,140 edges, d_feat 100;
+   drawn by a phase-2 worker), ms and peak memory; (e) the five archs at
+   their smoke configs from one numpy tree on the card and on the CPU
+   within ``CARD_CPU_TOL``; (f) ``examples/torch_autocomplete_rerank.py``
+   on the card printing the CPU's lines, and the launcher's ``--arch
+   sasrec`` / ``gin-tu`` exiting with ``repro``'s message;
 6. time each kernel against its plain version, its bound and (where one
    exists) a PyTorch library call at the main path's shapes (the locus DP
    also at E = 1 and 2, and the locus DP and the beam at every width the
@@ -189,14 +211,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    synchronise), ``locus_topk_merge`` so also on the dense cache with the
    packed run's loci (the gap is the rank lookups' cost); ``trie_walk``
    so too, with its loci entry and the rule-free ``walk_batch`` it
-   serves; print one JSON line of kernels (their launches summed over
-   phases 4, 4b, 4c and 5), the card, and, last, the device line;
+   serves; rows 12-13 also at phase 5c's model widths (D=18, D=50, and
+   DIN's bags); print one JSON line of kernels (their launches summed over
+   phases 4, 4b, 4c, 5 and 5c), the card, and, last, the device line;
    ``topk_select`` also at the cross-shard merge's [64, 160].  The profiler's
    traces of phase 4's paths run at the end of phase 4, ahead of phase
    5's: ``candidate_topk``'s two kernels apart, the rule-free
    ``walk_batch`` (which must be one kernel a call) and one batch of each
    USPS plain path (the device's busy share of the batch window, device
-   time by kernel).
+   time by kernel), each window's wrapper launches counted.
 
 ``--small`` runs every phase on small corpora (a quick compile-and-check).
 Without a CUDA device the script exits non-zero and prints no result.
@@ -292,6 +315,17 @@ LM_TF_TOL = 0.1
 LM_CARD_CPU_STEPS, LM_CARD_CPU_TOL = 4, 2e-2
 LM_LAUNCH_QUERIES, LM_LAUNCH_BATCH = 16, 8
 LM_MOE_REQUESTS = 8
+# the recsys and GNN models (phase 5c): the four recsys archs at their
+# full configs (src/repro/configs/{dlrm_rm2,din,sasrec,mind}.py; random
+# weights from a seeded generator on the card) on their serve_p99 and
+# retrieval_cand cells (configs/base.py RECSYS_SHAPES), DLRM also on
+# serve_bulk; retrieval keeps repro's k = 100 (configs/cells.py); --small
+# cuts the vocab to REC_SMALL_VOCAB and the batch to 4,096; the card
+# against the CPU at the smoke configs within CARD_CPU_TOL
+REC_ARCHS = ("dlrm-rm2", "din", "sasrec", "mind")
+RETRIEVAL_K = 100
+REC_SMALL_VOCAB = 20_000
+CARD_CPU_TOL = 1e-4
 #: the phase-2 kernels, as the profiler names them, by launch counter
 PHASE2_KERNELS = {"beam_topk": ("beam_topk_kernel",),
                   "beam_topk_packed": ("beam_topk_kernel",),
@@ -361,7 +395,9 @@ def host_job(job):
     trie: the per-node top-K cache when ``cache``, then the packed layout
     when ``compression == "packed"``; ``("save", (strings, scores,
     rule_pairs, spec_kw, container))`` builds an index and saves its
-    container at ``container`` (the parts written are that path).
+    container at ``container`` (the parts written are that path);
+    ``("graph", (n_nodes, n_edges, d_feat, n_classes))`` draws
+    ``make_random_graph``'s (src, dst, feats) without its CSR.
     Returns the step's start and end."""
     what, args, path = job
     import torch
@@ -373,7 +409,12 @@ def host_job(job):
 
     torch.set_num_threads(1)
     t = time.time()
-    if what in ("build", "save"):
+    if what == "graph":       # make_random_graph's (src, dst, feats)
+        from repro_torch.data.graph import make_random_graph
+
+        g = make_random_graph(*args, build_csr=False)
+        parts = (g.src, g.dst, g.feats)
+    elif what in ("build", "save"):
         strings, scores, rule_pairs, spec_kw = args[:4]
         if not len(strings):        # an empty shard, as the index builds it
             strings, scores = [""], [1]
@@ -538,17 +579,30 @@ def check_equal(name: str, what: str, got, want) -> None:
     log(f"  {name} {what}: equal")
 
 
-def check_close(name: str, what: str, got, want, tol: float) -> None:
-    """Float outputs: |got - want| <= tol * (1 + |want|) elementwise."""
+def check_close(name: str, what: str, got, want, tol: float,
+                of_scale: bool = False) -> float:
+    """Float outputs: |got - want| <= tol * (1 + |want|) elementwise, the
+    kernel ``name``'s largest error kept for the kernels line.  With
+    ``of_scale`` (the card against the CPU, whose caller logs the worst):
+    max |got - want| <= tol * max |want|, kept nowhere.  Returns the
+    error, relative to the scale with ``of_scale``."""
     import torch
 
-    err = float((got.float() - want.float()).abs().max()) if got.numel() \
-        else 0.0
+    got, want = got.float(), want.float().to(got.device)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if of_scale:
+        err /= max(float(want.abs().max()), 1e-30)
+        if not err <= tol:
+            raise AssertionError(f"{name} {what}: card and CPU differ by "
+                                 f"{err:.2e} of their scale (tolerance "
+                                 f"{tol})")
+        return err
     MAX_ABS_ERR[name] = max(MAX_ABS_ERR.get(name, 0.0), err)
-    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
         raise AssertionError(f"{name} {what}: kernel and plain version "
                              f"differ by {err} (tolerance {tol})")
     log(f"  {name} {what}: max |err| {err:.3g} within {tol}")
+    return err
 
 
 def check_topk(what: str, got, want, tol: float = 1e-5) -> None:
@@ -696,6 +750,44 @@ def device_kernels(prof, window: str | None = None) -> dict:
         out[kernel_name(ev.name)] = (
             n + 1, t + ev.time_range.end - ev.time_range.start)
     return out
+
+
+def profile_calls(fn, calls: int, names: set, label: str, launched,
+                  keep=lambda name: True) -> dict:
+    """Device kernels (those ``keep`` passes) of ``calls`` calls of ``fn``
+    under the profiler, by name: (count, total us).  Each of ``names``
+    must run once a call and nothing else run.  ``launched()`` reads the
+    wrapper's launch counter, which must rise by ``calls`` over the trace,
+    else the check fails at once.  A trace whose counter shows every
+    launch but which holds fewer events than that, of no other name, lost
+    records (CUPTI has dropped one of ten, ROADMAP.md §3) and is retaken,
+    twice at most; any other count fails at once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    want = {k: calls for k in names}
+    for attempt in range(3):
+        before = launched()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n_launched = launched() - before
+        got = {k: v for k, v in device_kernels(prof).items() if keep(k)}
+        counts = {k: n for k, (n, _) in got.items()}
+        if n_launched != calls:
+            raise AssertionError(f"profile {label}: the wrapper launched "
+                                 f"{n_launched} times in {calls} calls")
+        if counts == want:
+            return got
+        if not (set(counts) <= names
+                and all(n <= calls for n in counts.values())) or attempt == 2:
+            break
+        log(f"profile {label}: the trace lost records ({counts}, "
+            f"{calls} calls, {n_launched} launches counted); retaken")
+    raise AssertionError(f"profile {label}: {sorted(names)} once a call, "
+                         f"{calls} calls, {n_launched} launches counted, "
+                         f"expected: {got}")
 
 
 def batch_trace(prof, label: str, must=()) -> str:
@@ -980,6 +1072,344 @@ def lm_phase(dev, small: bool, counts, serve_main) -> None:
         raise AssertionError("the LM phase launched a completion kernel")
 
 
+# -- phase 5c: the recsys and GNN models ------------------------------------------
+
+
+def rec_batch(arch: str, cfg, batch: int, dev, step: int = 0) -> dict:
+    """A ``ClickStream`` batch (seed 0, at ``step``) of the arch's serving
+    inputs on ``dev``: DLRM's dense and sparse features, the sequence
+    archs' history (-1 padded) and target."""
+    import torch
+
+    from repro_torch.data.recsys import ClickStream, RecsysDataConfig
+
+    stream = ClickStream(RecsysDataConfig(
+        n_items=cfg.vocab, seq_len=getattr(cfg, "seq_len", 50), batch=batch),
+        start_step=step)
+    b = stream.next_dlrm() if arch == "dlrm-rm2" else stream.next_seq()
+    keys = ("dense", "sparse") if arch == "dlrm-rm2" else ("hist", "target")
+    return {k: torch.from_numpy(b[k]).to(dev) for k in keys}
+
+
+def check_retrieval(what: str, scores, ids, n_cands: int, k: int) -> None:
+    """Retrieval answers: k per row, finite, score-descending, distinct
+    ids below C."""
+    ok = (scores.shape[-1] == ids.shape[-1] == k
+          and bool(scores.isfinite().all())
+          and bool((scores[:, :-1] >= scores[:, 1:]).all())
+          and bool(((ids >= 0) & (ids < n_cands)).all())
+          and all(int(r.unique().numel()) == k for r in ids))
+    if not ok:
+        raise AssertionError(f"{what}: malformed retrieval answers")
+
+
+def models_phase(dev, small: bool, reset_counts, counts, serve_main,
+                 products) -> dict:
+    """Phase 5c: the recsys and GNN models' serving half on the card
+    (module docstring); raises on any failed check.  ``products`` is
+    ogb_products' graph (src, dst, feats) from a phase-2 worker.  Returns
+    the models' launches of rows 12-13 and phase 6's inputs at the model
+    widths."""
+    import contextlib
+    import io
+    import runpy
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graph import make_molecule_batch, make_random_graph
+    from repro_torch.kernels import candidate_topk, embedding_bag
+    from repro_torch.models import gnn, recsys
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    cpu = torch.device("cpu")
+
+    def peak_line(resident):
+        return (f"peak {torch.cuda.max_memory_allocated() - resident} B "
+                "above the resident")
+
+    # (a), (b): each recsys arch at full width through its serving forward
+    # and its retrieval cell, the launches of rows 12-13 counted
+    keep = {}
+    reset_counts()
+    for arch in REC_ARCHS:
+        spec = get_arch(arch)
+        cfg = spec.make_config()
+        if small:
+            cfg = dataclasses.replace(cfg, vocab=REC_SMALL_VOCAB)
+        fns = recsys.ARCHS[type(cfg)]
+        init, fwd, user_fn = fns.init, fns.forward, fns.user
+        t = time.perf_counter()
+        params = init(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+        torch.cuda.synchronize()
+        log(f"recsys {arch}: {params.n_params()} parameters (vocab "
+            f"{cfg.vocab}), initialised on the card in "
+            f"{time.perf_counter() - t:.3f} s")
+        cells = ("serve_p99", "retrieval_cand") + (
+            ("serve_bulk",) if arch == "dlrm-rm2" else ())
+        for cell in cells:
+            B = spec.shapes[cell].params["batch"]
+            if small:
+                B = min(B, 4096)
+            if arch == "sasrec" and cell == "retrieval_cand":
+                # repro's SASRec user is the last position, zero for every
+                # history shorter than seq_len (ClickStream pads at the
+                # end): the cell takes the stream's first full history
+                pool = rec_batch(arch, cfg, 512, dev)
+                full = (pool["hist"][:, -1] >= 0).nonzero()[:B, 0]
+                if full.numel() < B:
+                    raise AssertionError("sasrec retrieval_cand: no full-"
+                                         "length history in 512 rows")
+                batch = {k: v[full] for k, v in pool.items()}
+            else:
+                batch = rec_batch(arch, cfg, B, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            if cell == "retrieval_cand":
+                n_c = min(spec.shapes[cell].params["n_candidates"], cfg.vocab)
+                cands = recsys.candidates(params, n_c)
+
+                def call():
+                    return recsys.retrieval_topk(user_fn(params, batch, cfg),
+                                                 cands, RETRIEVAL_K)
+            else:
+                def call():
+                    return fwd(params, batch, cfg)
+            got = call()
+            torch.cuda.synchronize()
+            keep.setdefault(arch, {"params": params})[cell] = batch
+            if cell == "retrieval_cand":
+                check_retrieval(f"{arch} {cell}", *got, n_c, RETRIEVAL_K)
+                shape = f"B={B} C={n_c} k={RETRIEVAL_K}"
+                keep[arch]["cands"] = cands
+            else:
+                want = (B,) if arch in ("dlrm-rm2", "din") else \
+                    (B, cfg.n_interests, cfg.d_embed) if arch == "mind" \
+                    else (B, cfg.d_embed)
+                if tuple(got.shape) != want or not bool(got.isfinite().all()):
+                    raise AssertionError(f"{arch} {cell}: output "
+                                         f"{tuple(got.shape)}, expected "
+                                         f"{want}, finite")
+                shape = f"B={B}"
+            reps = 3 if cell == "serve_bulk" else 10
+            ms = cuda_ms(call, reps)
+            log(f"recsys {arch} {cell} ({shape}): {ms:.4f} ms a call "
+                f"(CUDA events, {reps} calls), {B / ms * 1e3:.0f} rows/s, "
+                + peak_line(resident))
+        if arch == "dlrm-rm2":    # the tables' 6.66 GB, before the GNN
+            del params, batch, cands, got
+            keep.pop(arch)
+            torch.cuda.empty_cache()
+    c = counts()
+    for name in ("candidate_topk", "embedding_bag"):
+        if c[name] <= 0:
+            raise AssertionError(f"recsys models: {name} never launched")
+        out["launches"][name] = c[name]
+    if c["plain"]:
+        raise AssertionError("recsys models: a plain version ran")
+    others = {k: v for k, v in c.items()
+              if k not in ("candidate_topk", "embedding_bag", "plain",
+                           "widths") and v}
+    if others:
+        raise AssertionError(f"recsys models launched {others}")
+    log(f"recsys models' launches: {out['launches']} ((a)-(b) took "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    t_part = time.perf_counter()
+
+    # (c) the kernels against their plain versions on the models' tensors:
+    # candidate_topk at DLRM's (the DIN and SASRec widths kept for phase
+    # 6), DIN's and SASRec's retrieval shapes, on the user row and on a
+    # random query; DIN's pooled history through embedding_bag_dense
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dlrm_cfg = get_arch("dlrm-rm2").make_config()
+    n_c = REC_SMALL_VOCAB if small else dlrm_cfg.vocab
+    dlrm_cands = torch.randn(n_c, dlrm_cfg.d_embed, generator=gen,
+                             device=dev) * dlrm_cfg.d_embed ** -0.5
+    user = {"dlrm-rm2": None}
+    for arch in ("din", "sasrec"):
+        params = keep[arch]["params"]
+        user[arch] = recsys.ARCHS[type(params.cfg)].user(
+            params, keep[arch]["retrieval_cand"], params.cfg)[0]
+        if not bool(user[arch].abs().max() > 0):
+            raise AssertionError(f"{arch} retrieval_cand: the user row is "
+                                 "zero, all candidates tie")
+    log("retrieval_cand user rows: max |x| "
+        + ", ".join(f"{a} {float(u.abs().max()):.3g}"
+                    for a, u in user.items() if u is not None))
+    for arch, cands in (("dlrm-rm2", dlrm_cands),
+                        ("din", keep["din"]["cands"]),
+                        ("sasrec", keep["sasrec"]["cands"])):
+        d = cands.shape[1]
+        queries = [("a random query", torch.randn(d, generator=gen,
+                                                  device=dev))]
+        if user[arch] is not None:
+            queries.append(("the user row", user[arch].contiguous()))
+        for label, q in queries:
+            check_topk(f"{arch} retrieval C={cands.shape[0]} D={d} "
+                       f"k={RETRIEVAL_K}, {label}",
+                       candidate_topk.candidate_topk(q, cands, RETRIEVAL_K),
+                       candidate_topk.candidate_topk_plain(q, cands,
+                                                           RETRIEVAL_K))
+    del dlrm_cands
+    din_params = keep["din"]["params"]
+    bag, weights, _ = recsys.din_history_weights(
+        din_params, keep["din"]["serve_p99"], din_params.cfg)
+    check_close("embedding_bag", f"DIN's pooled history {list(bag.shape)} "
+                f"over items {list(din_params.items.shape)}",
+                embedding_bag.embedding_bag_dense(din_params.items, bag,
+                                                  weights),
+                embedding_bag.embedding_bag_dense_plain(din_params.items,
+                                                        bag, weights), 1e-5)
+    out["din"] = (din_params.items.detach(), bag, weights)
+    out["cands"] = {arch: (keep[arch]["cands"], user[arch].contiguous())
+                    for arch in ("din", "sasrec")}
+    del keep
+    log(f"(c) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (d) gin-tu at full width on three of its shape cells
+    spec = get_arch("gin-tu")
+    for cell in ("full_graph_sm", "molecule", "ogb_products"):
+        p = dict(spec.shapes[cell].params)
+        cfg = dataclasses.replace(spec.make_config(), d_feat=p["d_feat"],
+                                  n_classes=p["n_classes"])
+        params = gnn.init_gin(torch.Generator(device=dev).manual_seed(0), cfg,
+                              device=dev)
+        t = time.perf_counter()
+        if cell == "molecule":
+            mb = make_molecule_batch(p["batch"], p["n_nodes"], p["n_edges"],
+                                     p["d_feat"], p["n_classes"])
+            args = [torch.from_numpy(mb[k]).to(dev)
+                    for k in ("feats", "src", "dst")]
+            rows, want = p["batch"], (p["batch"], p["n_classes"])
+        else:
+            if cell == "ogb_products":
+                src, dst, feats = products
+                n, e = int(feats.shape[0]), int(src.shape[0])
+            else:
+                g = make_random_graph(p["n_nodes"], p["n_edges"], p["d_feat"],
+                                      p["n_classes"], build_csr=False)
+                src, dst, feats = g.src, g.dst, g.feats
+                n, e = p["n_nodes"], p["n_edges"]
+            args = [torch.from_numpy(np.asarray(a)).to(dev)
+                    for a in (feats, src, dst)]
+            rows, want = n, (n, p["n_classes"])
+        torch.cuda.synchronize()
+        onto = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        got = params(*args)
+        torch.cuda.synchronize()
+        if tuple(got.shape) != want or not bool(got.isfinite().all()):
+            raise AssertionError(f"gin-tu {cell}: output {tuple(got.shape)}, "
+                                 f"expected {want}, finite")
+        line = peak_line(resident)
+        del got
+        reps = 2 if cell == "ogb_products" else 10
+        ms = cuda_ms(lambda: params(*args), reps)
+        log(f"gin-tu {cell} ({cfg.n_layers} layers, d_hidden "
+            f"{cfg.d_hidden}, d_feat {cfg.d_feat}; "
+            + (f"{p['batch']} graphs of {p['n_nodes']} nodes and "
+               f"{p['n_edges']} edges" if cell == "molecule" else
+               f"{rows} nodes, {e} edges")
+            + f"; onto the card {onto:.3f} s): {ms:.4f} ms a forward (CUDA "
+            f"events, {reps} calls), {rows / ms * 1e3:.0f} "
+            f"{'graphs' if cell == 'molecule' else 'nodes'}/s, {line}")
+        del args, params
+        torch.cuda.empty_cache()
+    log(f"(d) took {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (e) the card against the CPU: the five archs at their smoke configs,
+    # one numpy tree through params_from_numpy on each device
+    worst = {}
+    for arch in REC_ARCHS:
+        cfg = get_arch(arch).make_smoke_config()
+        fns = recsys.ARCHS[type(cfg)]
+        init, fwd, user_fn = fns.init, fns.forward, fns.user
+        tree = recsys.params_to_numpy(init(torch.Generator().manual_seed(1),
+                                           cfg, device=cpu))
+        res = {}
+        for d in (dev, cpu):
+            m = recsys.params_from_numpy(tree, cfg, device=d)
+            b = rec_batch(arch, cfg, 64, d, step=3)
+            u = user_fn(m, b, cfg)
+            res[d] = (fwd(m, b, cfg), u, *recsys.retrieval_topk(
+                u, recsys.candidates(m, cfg.vocab), 10))
+        (fg, ug, sg, ig), (fc, uc, sc, ic) = res[dev], res[cpu]
+        worst[arch] = max(check_close(arch, w, g, c, CARD_CPU_TOL, True)
+                          for w, g, c in (("forward", fg, fc),
+                                          ("user", ug, uc),
+                                          ("retrieval scores", sg, sc)))
+        near = torch.zeros_like(ic, dtype=torch.bool)
+        tie = (sc[:, 1:] - sc[:, :-1]).abs() <= CARD_CPU_TOL * max(
+            float(sc.abs().max()), 1e-30)
+        near[:, 1:] |= tie
+        near[:, :-1] |= tie
+        if bool(((ig.cpu() != ic) & ~near).any()):
+            raise AssertionError(f"{arch}: card and CPU retrieve other ids "
+                                 "away from near-ties")
+    cfg = get_arch("gin-tu").make_smoke_config()
+    tree = gnn.params_to_numpy(gnn.init_gin(torch.Generator().manual_seed(1),
+                                            cfg, device=cpu))
+    g = make_random_graph(500, 3000, cfg.d_feat, cfg.n_classes, seed=2,
+                          build_csr=False)
+    g.src[::17] = -1
+    mb = make_molecule_batch(16, 30, 64, cfg.d_feat, cfg.n_classes, seed=2)
+    res = {}
+    for d in (dev, cpu):
+        m = gnn.params_from_numpy(tree, cfg, device=d)
+        res[d] = [m(*(torch.from_numpy(a).to(d) for a in args))
+                  for args in ((g.feats, g.src, g.dst),
+                               (mb["feats"], mb["src"], mb["dst"]))]
+    worst["gin-tu"] = max(
+        check_close("gin-tu", w, gc, cc, CARD_CPU_TOL, True)
+        for w, gc, cc in zip(("full graph", "molecules"), res[dev], res[cpu]))
+    log("card vs CPU at the smoke configs (one numpy tree on both; forward, "
+        "user embedding, retrieval scores; GIN full graph with -1 edges and "
+        "molecules): relative errors "
+        + ", ".join(f"{a} {e:.2e}" for a, e in worst.items())
+        + f" (tolerance {CARD_CPU_TOL}); (e) took "
+        f"{time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (f) the reranking example on the card (its lines equal the CPU's),
+    # and the launcher's recsys and GNN archs
+    lines = {}
+    for argv in ([], ["--device", "cpu"]):
+        buf = io.StringIO()
+        saved_argv = sys.argv
+        sys.argv = ["torch_autocomplete_rerank.py"] + argv
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(str(ROOT / "examples" /
+                               "torch_autocomplete_rerank.py"),
+                           run_name="__main__")
+        sys.argv = saved_argv
+        lines[bool(argv)] = buf.getvalue().splitlines()
+    if lines[False] != lines[True] or len(lines[False]) != 12:
+        raise AssertionError(f"the reranking example on the card printed "
+                             f"{lines[False]}, on the CPU {lines[True]}")
+    for arch, family in (("sasrec", "recsys"), ("gin-tu", "gnn")):
+        try:
+            serve_main(["--arch", arch])
+        except SystemExit as err:
+            msg = str(err)
+        else:
+            raise AssertionError(f"the launcher served {arch}")
+        if msg != f"no serve mode for family {family}":
+            raise AssertionError(f"the launcher's --arch {arch}: {msg!r}")
+        log(f"launcher --arch {arch}: exits with {msg!r}, as repro's")
+    log(f"reranking example on the card: {len(lines[False])} lines, equal "
+        f"to the CPU's (first: {lines[False][0].strip()!r}); (f) took "
+        f"{time.perf_counter() - t_part:.1f} s")
+    log(f"phase 5c took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
@@ -997,6 +1427,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import repro_torch as rt
+    from repro_torch.configs.base import GNN_SHAPES
     from repro_torch.core.alphabet import pad_queries
     from repro_torch.core.engine import beam, cached, locus
     from repro_torch.core.distributed import shard_strings
@@ -1053,6 +1484,10 @@ def main() -> int:
         return ("build", (ds.strings, ds.scores, rules,
                           dict(kind=kind, **spec_kw)), None)
 
+    ogb = dict(GNN_SHAPES["ogb_products"].params)
+    if args.small:
+        ogb.update(n_nodes=ogb["n_nodes"] // 100,
+                   n_edges=ogb["n_edges"] // 100)
     jobs = {"USPS et": job(usps, "et"),
             "USPS ET cache_k=16": ("derive", (True, "none"), "USPS et"),
             "DBLP ht": job(dblp, "ht")}
@@ -1088,6 +1523,12 @@ def main() -> int:
         "USPS plain packed": ("derive", (False, "packed"), "USPS plain"),
         "USPS plain scores wide packed cache_k=16": (
             "derive", (True, "packed"), "USPS scores wide plain")})
+    # phase 5c's ogb_products graph (~25-40 s of host draws), queued behind
+    # every build: it runs once the workers idle beside the 1M chain (first
+    # in the queue, it slowed the chain by its core)
+    jobs["ogb_products graph"] = ("graph", (
+        ogb["n_nodes"], ogb["n_edges"], ogb["d_feat"], ogb["n_classes"]),
+        None)
     for tie in TIE_SCORES:
         src = f"USPS scores {tie} et"
         jobs.update({
@@ -1194,6 +1635,7 @@ def main() -> int:
     launch_path = landed("USPS ET 100k container")
     mt_indexes = {name: index(name) for name in ("DBLP multiterm none",
                                                  "DBLP multiterm packed")}
+    products = landed("ogb_products graph")    # mapped, read in phase 5c
     # the longest chain last
     usps_et = index("USPS et")
     usps_et_p = index("USPS ET packed")
@@ -2088,32 +2530,22 @@ def main() -> int:
     cuda_sub = get_substrate("cuda")
     # candidate_topk's two kernels apart, by the profiler
     for q_t, c_t in ((cand_q, cands), (cand_q_bf16, cands_bf16)):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                candidate_topk.candidate_topk(q_t, c_t, CAND_K)
-            torch.cuda.synchronize()
-        got = {k: v for k, v in device_kernels(prof).items()
-               if k.startswith("candidate_")}
-        if {k: n for k, (n, _) in got.items()} != {
-                "candidate_score_select": 10, "candidate_merge": 10}:
-            raise AssertionError("profile candidate_topk: two kernels a "
-                                 f"call, 10 calls, expected: {got}")
+        got = profile_calls(
+            lambda: candidate_topk.candidate_topk(q_t, c_t, CAND_K), 10,
+            {"candidate_score_select", "candidate_merge"}, "candidate_topk",
+            lambda: candidate_topk.launches,
+            keep=lambda name: name.startswith("candidate_"))
         log(f"profile candidate_topk {str(c_t.dtype)[6:]} (us a call, 10 "
             "calls): " + ", ".join(f"{k} {t / 10:.2f}"
                                    for k, (_, t) in got.items()))
-    # the rule-free walk_batch's device work, by the profiler: kernels a
-    # call
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            cuda_sub.walk_batch(tp, usps_plain.cfg, q_plain, ql_plain)
-        torch.cuda.synchronize()
-    by_kernel = device_kernels(prof)
+    # the rule-free walk_batch's device work, by the profiler: one
+    # trie_walk_kernel launch a call and nothing else
+    by_kernel = profile_calls(
+        lambda: cuda_sub.walk_batch(tp, usps_plain.cfg, q_plain, ql_plain),
+        10, {"trie_walk_kernel"}, "rule-free walk_batch",
+        lambda: trie_walk.launches)
     log("profile rule-free walk_batch (10 calls): " + ", ".join(
         f"{k} {n}x {t:.2f} us" for k, (n, t) in by_kernel.items()))
-    if (set(by_kernel) != {"trie_walk_kernel"}
-            or by_kernel["trie_walk_kernel"][0] != 10):
-        raise AssertionError("the rule-free walk_batch should be one "
-                             f"trie_walk_kernel launch a call: {by_kernel}")
     # one batch of each USPS plain path under the profiler: the device's
     # busy share of the batch window, and device time by kernel name
     plain_batch = make_workload(usps_small, 512, seed=1)[:B]
@@ -2945,6 +3377,15 @@ def main() -> int:
     lm_phase(dev, args.small, counts, serve_main)
     log(f"LM serving done at {time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 5c: the recsys and GNN models ----------------------------------------
+    log(f"phase 5c at {time.perf_counter() - t_start:.1f} s")
+    models = models_phase(dev, args.small, reset_counts, counts, serve_main,
+                          products)
+    del products
+    record(models["launches"], "candidate_topk", "embedding_bag",
+           by_width=False)
+    log(f"recsys and GNN models done at {time.perf_counter() - t_start:.1f} s")
+
     # -- phase 6: kernel times and bounds at the main path's shapes ---------------
     log(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
     q, ql = batch(usps, seed=1)
@@ -2991,7 +3432,10 @@ def main() -> int:
 
     bag_dense = ops.densify_bags(bag_idx, bag_off, bag_w, None,
                                  torch.float32, dev)
+    # the bound reads each distinct row once, and its operations count
+    # every valid entry
     n_valid = int((bag_idx >= 0).sum())
+    n_rows_read = int(torch.unique(bag_idx[bag_idx >= 0]).numel())
 
     def bag_library():
         return torch.nn.functional.embedding_bag(
@@ -3091,7 +3535,8 @@ def main() -> int:
          bag_library,
          # one float32 table row per valid index, the indices, weights and
          # offsets, the output; a multiply-add per gathered value
-         n_valid * BAG_D * 4 + n_idx * 8 + (BAGS + 1) * 4 + BAGS * BAG_D * 4,
+         n_rows_read * BAG_D * 4 + n_idx * 8 + (BAGS + 1) * 4
+         + BAGS * BAG_D * 4,
          2 * n_valid * BAG_D),
     ]
     saved = counts()
@@ -3118,12 +3563,67 @@ def main() -> int:
         cand_q_bf16, cands_bf16, CAND_K), 20)
     log(f"time candidate_topk bfloat16: {bf16_ms:.4f} ms kernel, bound "
         f"{bf16_bound:.6f} ms (bytes, {n_cand * CAND_D * 2} B)")
-    dense_bound, _ = bound(n_valid * BAG_D * 4 + bag_dense[0].numel() * 8
-                           + BAGS * BAG_D * 4, 2 * n_valid * BAG_D)
+    dense_bound, _ = bound(n_rows_read * BAG_D * 4
+                           + bag_dense[0].numel() * 8 + BAGS * BAG_D * 4,
+                           2 * n_valid * BAG_D)
     dense_ms = cuda_ms(lambda: embedding_bag.embedding_bag_dense(
         bag_table, *bag_dense), 20)
     log(f"time embedding_bag dense entry: {dense_ms:.4f} ms kernel, bound "
         f"{dense_bound:.6f} ms (bytes)")
+    # rows 12-13 at the models' widths (phase 5c's tensors): candidate_topk
+    # at DIN's D=18 and SASRec's D=50 over their 1M items (k=100; rows of
+    # 72 and 200 bytes take the scalar loads), on a random query of the
+    # width as the D=64 row; DIN's pooled history, embedding_bag_dense at
+    # [512, 100] over items [1M, 18], the library's form over the same
+    # bags (pads at row 0 with weight 0)
+    gen6 = torch.Generator(device=dev).manual_seed(11)
+    model_rows = {"candidate_topk": [], "embedding_bag": []}
+    for arch, (cands_m, _) in models["cands"].items():
+        C_m, D_m = cands_m.shape
+        q_m = torch.randn(D_m, generator=gen6, device=dev)
+        model_rows["candidate_topk"].append((
+            f"{arch} D={D_m} C={C_m} k={RETRIEVAL_K}",
+            lambda c=cands_m, q=q_m: candidate_topk.candidate_topk(
+                q, c, RETRIEVAL_K),
+            lambda c=cands_m, q=q_m: candidate_topk.candidate_topk_plain(
+                q, c, RETRIEVAL_K),
+            lambda c=cands_m, q=q_m: torch.topk(torch.mv(c, q), RETRIEVAL_K),
+            C_m * D_m * 4 + D_m * 4 + RETRIEVAL_K * 8, 2 * C_m * D_m))
+    items_m, bag_m, w_m = models["din"]
+    bag_lib = bag_m.clamp(min=0).long()
+    n_valid_m = int((bag_m >= 0).sum())
+    # zipf draws: most entries repeat a row the bag's bound reads once
+    n_rows_m = int(torch.unique(bag_m[bag_m >= 0]).numel())
+    D_m = int(items_m.shape[1])
+    log(f"DIN pooled history: {n_valid_m} valid entries read {n_rows_m} "
+        "distinct rows")
+    model_rows["embedding_bag"].append((
+        f"DIN pooled history {list(bag_m.shape)} D={D_m}",
+        lambda: embedding_bag.embedding_bag_dense(items_m, bag_m, w_m),
+        lambda: embedding_bag.embedding_bag_dense_plain(items_m, bag_m, w_m),
+        lambda: torch.nn.functional.embedding_bag(
+            bag_lib, items_m, mode="sum", per_sample_weights=w_m),
+        n_rows_m * D_m * 4 + bag_m.numel() * 8 + bag_m.shape[0] * D_m * 4,
+        2 * n_valid_m * D_m))
+    by_model = {}
+    for name, entries in model_rows.items():
+        for label, kern, plain, library, nbytes, n_ops in entries:
+            ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            library_ms = cuda_ms(library, 20)
+            g_ms, why = graph_ms(kern, 20)
+            bound_ms, bound_by = bound(nbytes, n_ops)
+            by_model.setdefault(name, []).append({
+                "shape": label, "ms": ms, "graph_ms": g_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            log(f"time {name} at the models' {label}: {ms:.4f} ms kernel "
+                "back to back, "
+                + (f"{g_ms:.4f} ms in a CUDA graph" if why is None
+                   else f"not measured in a CUDA graph ({why})")
+                + f", {plain_ms:.4f} ms plain, library {library_ms:.4f} ms, "
+                f"bound {bound_ms:.6f} ms ({bound_by}, {nbytes} B, {n_ops} "
+                "ops)")
+    del models
     # device time with the host out, and host time per call, for the rows
     # whose back-to-back time may be the host's: (label, the row that keeps
     # the times, their keys' prefix, the call, whether the row also keeps
@@ -3264,6 +3764,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in by_width:
             row["by_width"] = by_width[row["name"]]
+        if row["name"] in by_model:
+            row["model_widths"] = by_model[row["name"]]
     for k_name, (mod, attr) in counters.items():
         setattr(mod, attr, saved[k_name])
     log("build seconds: " + json.dumps(

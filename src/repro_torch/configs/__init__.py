@@ -1,23 +1,21 @@
-"""Architecture registry of the port: the three autocomplete archs and the
-five LM archs.
+"""Architecture registry of the port: the ten archs ``repro`` assigns (five
+LM, four recsys, one GNN) and the three autocomplete archs."""
 
-The JAX package's recsys and GNN archs are named here only so that asking
-for one raises ``NotImplementedError`` with its ROADMAP item, not an
-unknown-arch error.
-"""
-
-from repro_torch.configs import (arctic_480b, autocomplete,  # noqa: F401
-                                 granite_moe_1b_a400m, h2o_danube_1_8b,
-                                 mistral_nemo_12b, qwen2_5_14b)
+from repro_torch.configs import (arctic_480b, autocomplete, din,  # noqa: F401
+                                 dlrm_rm2, gin_tu, granite_moe_1b_a400m,
+                                 h2o_danube_1_8b, mind, mistral_nemo_12b,
+                                 qwen2_5_14b, sasrec)
 from repro_torch.configs.autocomplete import AutocompleteConfig
 from repro_torch.configs.base import REGISTRY, ArchSpec, ShapeCell
-from repro_torch.not_ported import not_ported
 
-#: the JAX package's arch ids the port does not run yet (recsys and GNN)
-OTHER_ARCHS = ("gin-tu", "mind", "sasrec", "din", "dlrm-rm2")
 #: the LM archs, in the JAX package's order
 LM_ARCHS = ("granite-moe-1b-a400m", "arctic-480b", "mistral-nemo-12b",
             "h2o-danube-1.8b", "qwen2.5-14b")
+#: the recsys archs, in the JAX package's order, and the GNN arch
+RECSYS_ARCHS = ("mind", "sasrec", "din", "dlrm-rm2")
+GNN_ARCHS = ("gin-tu",)
+#: ``repro``'s ``configs.registry.ASSIGNED``
+ASSIGNED = LM_ARCHS + GNN_ARCHS + RECSYS_ARCHS
 
 
 def all_archs() -> dict[str, ArchSpec]:
@@ -27,10 +25,9 @@ def all_archs() -> dict[str, ArchSpec]:
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id in REGISTRY:
         return REGISTRY[arch_id]
-    if arch_id in OTHER_ARCHS:
-        raise not_ported("arch")
     raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(REGISTRY)}")
 
 
-__all__ = ["ArchSpec", "AutocompleteConfig", "LM_ARCHS", "OTHER_ARCHS",
-           "REGISTRY", "ShapeCell", "all_archs", "get_arch"]
+__all__ = ["ASSIGNED", "ArchSpec", "AutocompleteConfig", "GNN_ARCHS",
+           "LM_ARCHS", "RECSYS_ARCHS", "REGISTRY", "ShapeCell", "all_archs",
+           "get_arch"]

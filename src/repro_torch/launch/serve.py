@@ -17,7 +17,9 @@ picks the execution substrate (``torch``: the plain PyTorch versions,
 The index lives on ``--device`` (CUDA unless told otherwise).
 
 For an LM arch it serves the arch's smoke config, random weights, through
-the continuous-batching ``LMServer`` (``serve_lm``).
+the continuous-batching ``LMServer`` (``serve_lm``).  The recsys and GNN
+archs have no serve mode here, as in ``repro``'s launcher: they exit
+with ``no serve mode for family ...``.
 """
 
 from __future__ import annotations
@@ -455,12 +457,14 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Run one workload (an LM arch: ``serve_lm``); returns its JSON
-    line's dict.  The JAX package's recsys and GNN arch ids raise
-    ``NotImplementedError``."""
+    line's dict.  A recsys or GNN arch has no serve mode: ``SystemExit``,
+    as ``repro``'s launcher gives."""
     args = parser().parse_args(argv)
     spec = get_arch(args.arch)
     if spec.family == "lm":
         return serve_lm(spec, args)
+    if spec.family != "autocomplete":
+        raise SystemExit(f"no serve mode for family {spec.family}")
     return WORKLOADS[args.workload](spec, args)
 
 

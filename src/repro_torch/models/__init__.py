@@ -1,6 +1,7 @@
-"""The LM's layers and the transformer (``repro``'s ``models`` package,
-its serving half; the recsys and GNN models are ROADMAP.md §1 item 12)."""
+"""The serving half of ``repro``'s ``models`` package: the LM's layers and
+the transformer, the recsys models and GIN (their training is ROADMAP.md
+§1 item 12)."""
 
-from repro_torch.models import layers, transformer
+from repro_torch.models import gnn, layers, recsys, transformer
 
-__all__ = ["layers", "transformer"]
+__all__ = ["gnn", "layers", "recsys", "transformer"]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models import _tree
 from repro_torch.models import layers as L
 from repro_torch.not_ported import not_ported
 
@@ -95,13 +96,8 @@ class TransformerConfig:
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving weights: nothing here differentiates them
-    return nn.Parameter(t, requires_grad=False)
-
-
 def _params(tree: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: _param(v) for k, v in tree.items()})
+    return nn.ParameterDict({k: _tree.param(v) for k, v in tree.items()})
 
 
 class Block(nn.Module):
@@ -112,8 +108,8 @@ class Block(nn.Module):
     def __init__(self, tree: dict):
         super().__init__()
         self.attn = _params(tree["attn"])
-        self.ln1 = _param(tree["ln1"])
-        self.ln2 = _param(tree["ln2"])
+        self.ln1 = _tree.param(tree["ln1"])
+        self.ln2 = _tree.param(tree["ln2"])
         self.mlp = _params(tree["mlp"]) if "mlp" in tree else None
         self.moe = _params(tree["moe"]) if "moe" in tree else None
 
@@ -132,10 +128,10 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: TransformerConfig, tree: dict):
         super().__init__()
         self.cfg = cfg
-        self.embed = _param(tree["embed"])
+        self.embed = _tree.param(tree["embed"])
         self.blocks = nn.ModuleList(Block(t) for t in tree["layers"])
-        self.final_ln = _param(tree["final_ln"])
-        self.unembed = _param(tree["unembed"])
+        self.final_ln = _tree.param(tree["final_ln"])
+        self.unembed = _tree.param(tree["unembed"])
 
     def forward(self, tokens):
         return forward(self, tokens, self.cfg)
@@ -272,8 +268,8 @@ def forward(params: TransformerLM, tokens, cfg: TransformerConfig):
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
-    """The training loss belongs to LM training (ROADMAP.md §1 item 12)."""
-    raise not_ported("lm_training")
+    """The training loss belongs to training (ROADMAP.md §1 item 12)."""
+    raise not_ported("training")
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from repro_torch.core.engine import cached
 from repro_torch.core.engine import packed as pk
 from repro_torch.core.engine.substrate import complete_batch, get_substrate
 from repro_torch.kernels import locus_merge, ref as tref, topk_select
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ["plain", "tt", "et", "ht"]

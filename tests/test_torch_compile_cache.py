@@ -22,6 +22,7 @@ from repro.serving.completion_service import \
     CompletionService as JaxService
 from repro_torch.api import CompileCache, bucket_size
 from repro_torch.core.trie_build import make_rules
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 STRINGS = ["andrew pavlo", "andrew parker", "andrew packard", "andy x",

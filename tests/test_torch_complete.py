@@ -20,6 +20,7 @@ from repro_torch.core.alphabet import pad_queries
 from repro_torch.core.engine import beam, locus
 from repro_torch.core.engine.substrate import complete_batch
 from repro_torch.kernels import beam_topk, locus_dp, trie_walk
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = ["plain", "tt", "et", "ht"]

@@ -28,6 +28,7 @@ from repro_torch.core.alphabet import pad_queries
 from repro_torch.core.engine import primitives as tprim
 from repro_torch.core.engine.substrate import get_substrate
 from repro_torch.kernels import beam_topk, locus_dp, ref as tref, trie_walk
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 PAPER = (["andrew pavlo", "andrew parker", "andrew packard", "william smith",

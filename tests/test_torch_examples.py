@@ -4,8 +4,12 @@ prints, line for line (the saved container's path and size aside), and
 ``examples/torch_serve_autocomplete.py`` at a small ``--n`` prints the
 lines of ``examples/serve_autocomplete.py``'s format: a line a structure
 (tt, et, ht, et+cache) with its bytes a string, the keystroke line with
-its count, and five queries with the port index's own suggestions."""
+its count, and five queries with the port index's own suggestions;
+``examples/torch_autocomplete_rerank.py`` prints the popularity lines of
+``examples/autocomplete_rerank.py`` (its user-aware lines rank by a
+SASRec model of other random weights)."""
 
+import ast
 import re
 import runpy
 import sys
@@ -62,7 +66,25 @@ def test_serve_autocomplete_prints_repros_lines(capsys, monkeypatch):
                        for q in queries[:5]]
 
 
+def test_rerank_prints_repros_popularity_lines(capsys, monkeypatch):
+    ours = _run(EXAMPLES / "torch_autocomplete_rerank.py",
+                ["--device", "cpu"], capsys, monkeypatch)
+    theirs = _run(EXAMPLES / "autocomplete_rerank.py", [], capsys,
+                  monkeypatch)
+    assert len(ours) == len(theirs) == 12
+    for a, b in zip(ours, theirs):
+        if "popularity:" in b:
+            assert a == b
+        else:
+            assert a.split(":")[0] == b.split(":")[0]
+    # the user-aware lines rerank the same candidates
+    for a, b in zip(ours[1::3], theirs[1::3]):
+        assert sorted(ast.literal_eval(a.split(": ", 1)[1])) == \
+            sorted(ast.literal_eval(b.split(": ", 1)[1]))
+
+
 def test_examples_default_to_the_card():
-    for name in ("torch_quickstart", "torch_serve_autocomplete"):
+    for name in ("torch_quickstart", "torch_serve_autocomplete",
+                 "torch_autocomplete_rerank"):
         text = (EXAMPLES / f"{name}.py").read_text()
         assert 'ap.add_argument("--device", default="cuda"' in text, name

@@ -23,6 +23,7 @@ from repro_torch.core.alphabet import pad_queries
 from repro_torch.core.engine import locus
 from repro_torch.core.trie_build import make_rules
 from repro_torch.serving.completion_service import ServiceStats
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 K = 3

@@ -33,6 +33,7 @@ from repro.data.strings import make_usps
 from repro.kernels import ref as jref
 from repro_torch.core.alphabet import pad_queries
 from repro_torch.kernels import beam_topk, locus_dp
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 _FAST = {"xla_backend_optimization_level": 0}

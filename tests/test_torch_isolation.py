@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 do ``chip_smoke.py`` and the port's examples), runs on the CUDA device
 unless told otherwise, and raises on every option outside the ported
-slices (the recsys and GNN archs, LM training)."""
+slices (training: the LM's, recsys and GNN losses)."""
 
 import os
 import pkgutil
@@ -13,9 +13,9 @@ import pytest
 import torch
 
 import repro_torch as rt
-from repro_torch.configs import get_arch
 from repro_torch.core.engine.substrate import resolve_substrate
 from repro_torch.core.trie_build import make_rules
+from repro_torch.models import gnn, recsys
 from repro_torch.models.transformer import TransformerConfig, loss_fn
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -24,7 +24,8 @@ PAPER = (["andrew pavlo", "andrew parker", "william smith"], [50, 40, 20],
          [("andy", "andrew"), ("bill", "william")])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 EXAMPLES = ("examples/torch_quickstart.py",
-            "examples/torch_serve_autocomplete.py")
+            "examples/torch_serve_autocomplete.py",
+            "examples/torch_autocomplete_rerank.py")
 
 
 def _run(args, cwd, with_src=True):
@@ -42,7 +43,10 @@ def test_port_and_chip_smoke_import_no_jax():
     for mod in ("repro_torch.kernels.locus_dp", "repro_torch.kernels.ops",
                 "repro_torch.api.compile_cache", "repro_torch.core.oracle",
                 "repro_torch.core.api", "repro_torch.analysis.shm",
-                "repro_torch.analysis.__main__"):
+                "repro_torch.analysis.__main__", "repro_torch.models.recsys",
+                "repro_torch.models.gnn", "repro_torch.data.recsys",
+                "repro_torch.data.graph", "repro_torch.configs.gin_tu",
+                "repro_torch.configs.dlrm_rm2"):
         assert mod in mods, mod
     code = (
         "import importlib, runpy, sys\n"
@@ -111,8 +115,11 @@ def test_auto_substrate_follows_the_device():
 
 
 SURFACES = [
-    ("arch", lambda i: get_arch("sasrec")),
     ("lm_training", lambda i: loss_fn(None, {}, TransformerConfig())),
+    ("recsys_training",
+     lambda i: recsys.sasrec_loss(None, {}, recsys.SASRecConfig())),
+    ("gnn_training",
+     lambda i: gnn.loss_batched_graphs(None, {}, gnn.GINConfig())),
 ]
 
 
@@ -138,7 +145,7 @@ def test_no_fallback_between_kernel_and_plain_version():
                 "api/index.py", "api/compile_cache.py", "api/session.py",
                 "serving/scheduler.py", "core/distributed.py",
                 "core/__init__.py", "core/api.py", "core/oracle.py",
-                "launch/serve.py"):
+                "launch/serve.py", "models/recsys.py", "models/gnn.py"):
         text = (ROOT / "src" / "repro_torch" / mod).read_text()
         assert "try:" not in text, mod
     for path in EXAMPLES:

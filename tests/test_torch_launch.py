@@ -22,6 +22,7 @@ from repro.api import IndexSpec as JaxSpec
 from repro.api import build_index as jax_build
 from repro.launch import serve as jax_serve
 from repro_torch.launch import serve
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 ARGS = ["--arch", "autocomplete-usps", "--n-strings", "1000",
@@ -130,8 +131,16 @@ def test_save_load_and_substrates(tmp_path, capsys):
     capsys.readouterr()
 
 
-def test_other_archs_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 12"):
-        serve.main(["--arch", "sasrec", "--device", "cpu"])
+def test_other_archs_are_not_ported(monkeypatch):
+    """The recsys and GNN archs have no serve mode: the launcher exits with
+    ``repro``'s message."""
+    for arch, family in (("sasrec", "recsys"), ("gin-tu", "gnn")):
+        with pytest.raises(SystemExit) as ours:
+            serve.main(["--arch", arch, "--device", "cpu"])
+        monkeypatch.setattr("sys.argv", ["serve", "--arch", arch])
+        with pytest.raises(SystemExit) as theirs:
+            jax_serve.main()
+        assert str(ours.value) == str(theirs.value) == \
+            f"no serve mode for family {family}"
     with pytest.raises(KeyError, match="unknown arch"):
         serve.main(["--arch", "no-such-arch", "--device", "cpu"])

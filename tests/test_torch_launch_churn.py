@@ -13,6 +13,7 @@ from repro_torch.core.trie_build import make_rules
 from repro_torch.data import strings as port_strings
 from repro_torch.launch import serve
 from test_torch_launch import check_workload
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 

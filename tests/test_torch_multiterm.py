@@ -21,6 +21,7 @@ from repro.data.strings import make_dblp, make_workload
 from repro_torch.api import (get_synthesizer, multiterm_rules,
                              register_rule_synthesizer)
 from repro_torch.core.trie_build import SynonymRule, make_rules
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 K = 5

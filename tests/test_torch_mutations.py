@@ -28,6 +28,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core.engine.substrate import get_substrate
 from repro_torch.core.trie_build import make_rules
 from repro_torch.data.strings import make_usps
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 # small static widths: the overlay merge itself does not depend on them

@@ -29,6 +29,7 @@ from repro.core.alphabet import pad_queries
 from repro.kernels import ops as jops
 from repro_torch.core.trie_build import make_rules
 from repro_torch.kernels import ops
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 STRINGS = ["andrew pavlo", "andrew parker", "andrew packard",

@@ -27,6 +27,7 @@ from repro.data.strings import make_usps, make_workload
 from repro_torch.api.build import derived_stats
 from repro_torch.core import trie_build as tb
 from repro_torch.core.trie_build import make_rules
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 K = 10

@@ -33,6 +33,7 @@ from repro_torch.core.trie_build import make_rules
 from repro_torch.data import strings as port_strings
 from repro_torch.launch.serve import _replay_batched as replay_batched
 from repro_torch.launch.serve import _replay_sequential as replay_sequential
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 PAPER = (["andrew pavlo", "andrew parker", "andrew packard",

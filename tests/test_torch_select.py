@@ -34,6 +34,7 @@ from repro.data.strings import make_usps
 from repro.kernels import ref as jref
 from repro_torch.core.engine import packed as pk
 from repro_torch.kernels import _build, locus_merge, topk_select
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 INT_MAX = 2**31 - 1

@@ -19,6 +19,7 @@ from repro.api import build_index as jax_build
 from repro.core import make_rules as jax_rules
 from repro_torch.core import engine as eng
 from repro_torch.core.trie_build import make_rules
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 K = 3

@@ -28,6 +28,7 @@ from repro.data.strings import make_usps, make_workload
 from repro_torch.core import distributed as dist
 from repro_torch.core.engine import substrate as subs
 from repro_torch.core.trie_build import make_rules
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 K_SMALL, K_BIG, CACHE_K = 3, 6, 4

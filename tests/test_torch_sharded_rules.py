@@ -21,6 +21,7 @@ from repro_torch.core import distributed as dist
 from repro_torch.core.trie_build import make_rules
 from test_torch_sharded import (CACHE_K, K_BIG, K_SMALL, _corpus, _jax,
                                 _port, check_answers)
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 

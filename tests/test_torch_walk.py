@@ -33,6 +33,7 @@ from repro.core.alphabet import pad_queries
 from repro.core.engine.substrate import get_substrate as jax_substrate
 from repro_torch.core.engine.substrate import get_substrate
 from repro_torch.kernels import _build, trie_walk as tw
+from torch_fast_jit import fast_jax_jit  # noqa: F401
 from torch_threads import one_torch_thread  # noqa: F401
 
 INT_MAX = 2**31 - 1
