@@ -198,6 +198,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    within ``CARD_CPU_TOL``; (f) ``examples/torch_autocomplete_rerank.py``
    on the card printing the CPU's lines, and the launcher's ``--arch
    sasrec`` / ``gin-tu`` exiting with ``repro``'s message;
+5d. training (``training_phase``, run after phase 4b and ahead of phase
+   4c, where the card holds least and no trace follows phase 5's):
+   (a) h2o-danube-1.8b at full width (float32 weights and AdamW state,
+   bfloat16 activations, remat), 3 steps of ``make_train_step`` on one
+   ``TokenStream`` batch of 8 x 1,024 (train_4k cut to one card): losses
+   finite, the first within 2 of ln(vocab), the third no higher than the
+   first plus 1e-2; ms a step, tokens/s, peak memory; a fourth step
+   traced (busy share, the kernels with the most device time); (b) DIN at
+   its published config on ``train_batch`` (65,536 ``ClickStream``
+   histories of 100), 3 steps and a traced fourth, rows/s; (c) the ten
+   archs' smoke configs through ``launch/train.py``; (d) a restart from
+   the checkpoint the launcher wrote; (e) ``examples/torch_train_lm.py``
+   at 40 steps (its loss must fall) — row 13's forward and backward
+   kernels launched in (a)-(e), counted, no plain version run; then the
+   launcher's first losses card against CPU, danube's loss and gradients
+   at 2 layers card against CPU, the bag's two kernels against their
+   plain versions at ``train_batch`` (d_items and d_weights within 1e-5
+   of their scale), DIN's attention MLP and item table given gradients
+   through the bag, and the backward's row of the kernels line (b2b and
+   graph ms, plain, ``F.embedding_bag`` forward and backward, bound);
 6. time each kernel against its plain version, its bound and (where one
    exists) a PyTorch library call at the main path's shapes (the locus DP
    also at E = 1 and 2, and the locus DP and the beam at every width the
@@ -326,6 +346,27 @@ REC_ARCHS = ("dlrm-rm2", "din", "sasrec", "mind")
 RETRIEVAL_K = 100
 REC_SMALL_VOCAB = 20_000
 CARD_CPU_TOL = 1e-4
+# training (phase 5d): h2o-danube-1.8b at full width (float32 weights and
+# AdamW state, bfloat16 activations, remat) for TRAIN_STEPS steps of
+# make_train_step on one TokenStream batch of TRAIN_BATCH x TRAIN_SEQ
+# (train_4k's 256 x 4,096 cut to one card; the same batch each step, so
+# the loss check reads the steps and not the batches' noise); its first
+# loss within TRAIN_FIRST_LOSS_SPAN of ln(vocab) (weights of std 0.02
+# give logits of std ~1); 2 layers of it card against CPU on
+# TRAIN_CARD_CPU_TOKENS within LM_CARD_CPU_TOL of each gradient leaf's
+# scale; DIN at its published config on train_batch (65,536 ClickStream
+# histories of 100; one batch, TRAIN_STEPS steps), the bag's backward
+# against its plain version there within BAG_GRAD_TOL of its scale; the
+# ten archs' smoke configs through the launcher for TRAIN_LAUNCH_STEPS
+# steps, card against CPU on the first loss within CARD_CPU_TOL; a
+# restart from a checkpoint the launcher wrote; the training example at
+# TRAIN_EXAMPLE_STEPS steps.  A loss may end no higher than its first
+# plus TRAIN_LOSS_RISE (AdamW's warmup keeps the first steps small)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1_024, 3
+TRAIN_FIRST_LOSS_SPAN, TRAIN_LOSS_RISE = 2.0, 1e-2
+TRAIN_CARD_CPU_TOKENS = (2, 64)
+BAG_GRAD_TOL = 1e-5
+TRAIN_LAUNCH_STEPS, TRAIN_EXAMPLE_STEPS = 3, 40
 #: the phase-2 kernels, as the profiler names them, by launch counter
 PHASE2_KERNELS = {"beam_topk": ("beam_topk_kernel",),
                   "beam_topk_packed": ("beam_topk_kernel",),
@@ -1410,6 +1451,388 @@ def models_phase(dev, small: bool, reset_counts, counts, serve_main,
     return out
 
 
+# -- phase 5d: training ----------------------------------------------------------
+
+
+def launch_train(train_main, arch: str, device: str, ckpt: str, steps: int):
+    """The training launcher's ``main`` at ``arch``'s smoke config, its
+    output captured: (its JSON dict, its printed lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train_main(["--arch", arch, "--steps", str(steps), "--batch",
+                          "4", "--seq", "32", "--ckpt-dir", ckpt,
+                          "--ckpt-every", str(steps), "--log-every", "1",
+                          "--device", device])
+    return res, buf.getvalue().splitlines()
+
+
+def timed_steps(step, params, opt, batches) -> tuple[list, list]:
+    """``step`` over ``batches``: (losses, ms a step on the host clock, each
+    step ended by a synchronise)."""
+    import torch
+
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms
+
+
+def check_losses(what: str, losses, near: float | None = None,
+                 same_batch: bool = True) -> None:
+    """Every loss finite; on one batch repeated, the last no higher than
+    the first plus ``TRAIN_LOSS_RISE``; the first within
+    ``TRAIN_FIRST_LOSS_SPAN`` of ``near``."""
+    import math
+
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{what}: a loss is not finite: {losses}")
+    if same_batch and losses[-1] > losses[0] + TRAIN_LOSS_RISE:
+        raise AssertionError(f"{what}: the loss rose from {losses[0]} to "
+                             f"{losses[-1]}")
+    if near is not None and abs(losses[0] - near) > TRAIN_FIRST_LOSS_SPAN:
+        raise AssertionError(f"{what}: the first loss {losses[0]} is not "
+                             f"within {TRAIN_FIRST_LOSS_SPAN} of {near}")
+
+
+def step_profile(fn, label: str, must=(), top: int = 8) -> str:
+    """One call of ``fn`` traced by the profiler: the device's busy share
+    of its window, its device time and the ``top`` kernels by device
+    time.  Raises where the trace is empty or lacks a kernel of
+    ``must``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(BATCH_WINDOW):
+            fn()
+            torch.cuda.synchronize()
+    head = batch_trace(prof, label, must).partition(", by kernel: ")[0]
+    kernels = device_kernels(prof, BATCH_WINDOW)
+    total = sum(t for _, t in kernels.values())
+    most = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return (f"{head}, device time {total:.1f} us in {len(kernels)} kernel "
+            "names; the most: " + ", ".join(
+                f"{k} {n}x {t:.1f} us ({100 * t / total:.1f} %)"
+                for k, (n, t) in most))
+
+
+def training_phase(dev, small: bool, reset_counts, counts,
+                   train_main) -> dict:
+    """Phase 5d: training on the card (module docstring); raises on any
+    failed check.  Returns the launches of row 13's kernels in the
+    training runs and the bag backward's row of the kernels line."""
+    import contextlib
+    import io
+    import math
+    import os
+    import runpy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ASSIGNED, get_arch
+    from repro_torch.configs.cells import make_train_step
+    from repro_torch.data.lm import LMDataConfig, TokenStream
+    from repro_torch.data.recsys import ClickStream, RecsysDataConfig
+    from repro_torch.kernels import embedding_bag
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import grad_tree, init_optimizer
+    from repro_torch.optim.optimizers import leaves
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    torch.cuda.empty_cache()
+    log(f"training: {torch.cuda.memory_allocated()} B resident before it "
+        "(the indexes)")
+
+    # the training runs, their launches counted: (a) danube at full width
+    reset_counts()
+    spec = get_arch(LM_ARCH)
+    cfg = spec.make_config()
+    seq = TRAIN_SEQ
+    if small:
+        cfg, seq = dataclasses.replace(cfg, n_layers=2), TRAIN_SEQ // 4
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    params = tf.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                        device=dev)
+    opt = init_optimizer(spec.optimizer, params)
+    step = make_train_step(tf.loss_fn, cfg, spec.optimizer)
+    raw = TokenStream(LMDataConfig(vocab=cfg.vocab, seq_len=seq,
+                                   global_batch=TRAIN_BATCH)).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    losses, ms = timed_steps(step, params, opt, [batch] * TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check_losses(f"train {LM_ARCH}", losses, math.log(cfg.vocab))
+    tokens = TRAIN_BATCH * seq
+    out = {"lm": {"ms": ms, "losses": losses, "peak": peak - resident}}
+    log(f"train {LM_ARCH} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {params.n_params()} parameters; float32 weights "
+        f"and AdamW state, {cfg.activation_dtype} activations, remat "
+        f"{cfg.remat}; made in {init_s:.3f} s): {TRAIN_STEPS} steps on one "
+        f"TokenStream batch of {TRAIN_BATCH} x {seq}: losses "
+        f"{[round(x, 6) for x in losses]} (ln vocab {math.log(cfg.vocab):.4f}"
+        f"); ms a step {[round(x, 3) for x in ms]} (host clock, "
+        f"synchronised; the first compiles nothing but warms the "
+        f"allocator); {tokens / ms[-1] * 1e3:.1f} tokens/s at the last; "
+        f"peak {peak - resident} B above the resident")
+    log(f"train {LM_ARCH}, a fourth step traced: " + step_profile(
+        lambda: step(params, opt, batch), f"train {LM_ARCH}"))
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+
+    # (b) DIN at its published config on train_batch
+    spec = get_arch("din")
+    cfg = spec.make_config()
+    B = spec.shapes["train_batch"].params["batch"]
+    if small:
+        cfg, B = dataclasses.replace(cfg, vocab=REC_SMALL_VOCAB), 4096
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    din = recsys.init_din(torch.Generator(device=dev).manual_seed(0), cfg,
+                          device=dev)
+    opt = init_optimizer(spec.optimizer, din)
+    step = make_train_step(recsys.din_loss, cfg, spec.optimizer)
+    t = time.perf_counter()
+    raw = ClickStream(RecsysDataConfig(n_items=cfg.vocab, batch=B,
+                                       seq_len=cfg.seq_len)).next_seq()
+    draw_s = time.perf_counter() - t
+    batch = {k: torch.from_numpy(raw[k]).to(dev)
+             for k in ("hist", "target", "label")}
+    losses, ms = timed_steps(step, din, opt, [batch] * TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check_losses("train din", losses)
+    out["din"] = {"ms": ms, "losses": losses, "peak": peak - resident}
+    log(f"train din at its published config (items {cfg.vocab} x "
+        f"{cfg.d_embed}, T={cfg.seq_len}) on train_batch (B={B}; the "
+        f"ClickStream batch drawn in {draw_s:.3f} s): losses "
+        f"{[round(x, 6) for x in losses]}; ms a step "
+        f"{[round(x, 3) for x in ms]}; {B / ms[-1] * 1e3:.0f} rows/s at the "
+        f"last; peak {peak - resident} B above the resident")
+    log("train din, a fourth step traced: " + step_profile(
+        lambda: step(din, opt, batch), "train din",
+        must=("embedding_bag_kernel", "embedding_bag_backward_kernel")))
+    del opt, step
+
+    # (c) the ten archs' smoke configs through the launcher on the card,
+    # (d) a restart from the launcher's checkpoint, (e) the example
+    first = {}
+    for arch in ASSIGNED:
+        res, _ = launch_train(train_main, arch, "cuda",
+                              os.path.join(tmp, "card"), TRAIN_LAUNCH_STEPS)
+        check_losses(f"launcher {arch}", [res["first_loss"],
+                                          res["last_loss"]],
+                     same_batch=False)   # a new batch each step
+        first[arch] = res["first_loss"]
+    ckpt = os.path.join(tmp, "restart")
+    launch_train(train_main, "din", "cuda", ckpt, TRAIN_LAUNCH_STEPS)
+    res, lines = launch_train(train_main, "din", "cuda", ckpt,
+                              TRAIN_LAUNCH_STEPS + 2)
+    resumed = [x.split()[1] for x in lines if x.startswith("step ")]
+    if resumed != [str(TRAIN_LAUNCH_STEPS), str(TRAIN_LAUNCH_STEPS + 1)] \
+            or f"step_{TRAIN_LAUNCH_STEPS + 2:08d}" not in os.listdir(
+                os.path.join(ckpt, "din")):
+        raise AssertionError(f"launcher restart: steps run {resumed}")
+    log(f"launcher restart: din resumed from the checkpoint of step "
+        f"{TRAIN_LAUNCH_STEPS} and ran steps {resumed}")
+    buf = io.StringIO()
+    saved_argv = sys.argv
+    sys.argv = ["torch_train_lm.py", "--steps", str(TRAIN_EXAMPLE_STEPS),
+                "--ckpt", os.path.join(tmp, "example")]
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_path(str(ROOT / "examples" / "torch_train_lm.py"),
+                       run_name="__main__")
+    sys.argv = saved_argv
+    example = buf.getvalue().splitlines()
+    log(f"examples/torch_train_lm.py --steps {TRAIN_EXAMPLE_STEPS} on the "
+        f"card ({time.perf_counter() - t:.1f} s): {example[0]!r}, "
+        f"{example[-1]!r}")
+    c = counts()
+    for name in ("embedding_bag", "embedding_bag_backward"):
+        if c[name] <= 0:
+            raise AssertionError(f"training: {name} never launched")
+    if c["plain"]:
+        raise AssertionError("training: a plain version ran")
+    others = {k: v for k, v in c.items()
+              if k not in ("embedding_bag", "embedding_bag_backward",
+                           "plain", "widths") and v}
+    if others:
+        raise AssertionError(f"training launched {others}")
+    out["launches"] = {k: c[k] for k in ("embedding_bag",
+                                         "embedding_bag_backward")}
+    log(f"training runs' launches: {out['launches']} ((a)-(e) took "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    t_part = time.perf_counter()
+
+    # the card against the CPU: the launcher's first losses, then one
+    # step's loss and gradients of danube at 2 layers of full width
+    worst = {}
+    for arch in ASSIGNED:
+        res, _ = launch_train(train_main, arch, "cpu",
+                              os.path.join(tmp, "cpu"), 1)
+        err = abs(first[arch] - res["first_loss"]) / max(
+            abs(res["first_loss"]), 1e-30)
+        if err > CARD_CPU_TOL:
+            raise AssertionError(f"launcher {arch}: first loss on the card "
+                                 f"{first[arch]}, on the CPU "
+                                 f"{res['first_loss']}")
+        worst[arch] = err
+    log("launcher card vs CPU, first loss (one host-drawn tree on both): "
+        "relative errors " + ", ".join(f"{a} {e:.2e}"
+                                       for a, e in worst.items())
+        + f" (tolerance {CARD_CPU_TOL})")
+    cfg2 = dataclasses.replace(get_arch(LM_ARCH).make_config(), n_layers=2)
+    tree = tf.params_to_numpy(tf.init_lm(torch.Generator().manual_seed(1),
+                                         cfg2, device=cpu))
+    b, s_ = TRAIN_CARD_CPU_TOKENS
+    raw = TokenStream(LMDataConfig(vocab=cfg2.vocab, seq_len=s_,
+                                   global_batch=b)).next_batch()
+    res = {}
+    for d in (dev, cpu):
+        m = tf.params_from_numpy(tree, cfg2, device=d).requires_grad_(True)
+        loss, _ = tf.loss_fn(m, {k: torch.from_numpy(v).to(d)
+                                 for k, v in raw.items()}, cfg2)
+        loss.backward()
+        res[d] = (loss.detach().cpu(),
+                  [(torch.stack(g) if isinstance(g, tuple) else g).cpu()
+                   for g in leaves(grad_tree(m))])
+        del m
+    del tree
+    errs = [check_close(LM_ARCH, "2-layer loss", res[dev][0], res[cpu][0],
+                        LM_CARD_CPU_TOL, of_scale=True)]
+    for i, (g_card, g_cpu) in enumerate(zip(res[dev][1], res[cpu][1])):
+        errs.append(check_close(LM_ARCH, f"2-layer gradient leaf {i}",
+                                g_card, g_cpu, LM_CARD_CPU_TOL, True))
+    log(f"train {LM_ARCH} card vs CPU ({cfg2.n_layers} layers at full "
+        f"width, one host-drawn tree, {b} x {s_} tokens): loss "
+        f"{float(res[cpu][0]):.6f}, loss and {len(errs) - 1} gradient "
+        f"leaves within {max(errs):.2e} of their scale (tolerance "
+        f"{LM_CARD_CPU_TOL}); torch matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}")
+    del res
+
+    # the bag's two kernels against their plain versions on DIN's
+    # train_batch, and DIN's gradients through the pooled history
+    items = din.items.detach()
+    with torch.no_grad():
+        bag, w, _ = recsys.din_history_weights(din, batch, cfg)
+    g = torch.randn((bag.shape[0], items.shape[1]),
+                    generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    check_close("embedding_bag", f"DIN train_batch {list(bag.shape)} "
+                "forward", embedding_bag.embedding_bag_dense(items, bag, w),
+                embedding_bag.embedding_bag_dense_plain(items, bag, w), 1e-5)
+    d_items, d_w = embedding_bag._run_backward(items, bag, w, g, "sum", True,
+                                               True)
+    p_items, p_w = embedding_bag.embedding_bag_dense_backward_plain(
+        items, bag, w, g, "sum")
+    err_items = check_close("embedding_bag_backward", "d_items", d_items,
+                            p_items, BAG_GRAD_TOL, of_scale=True)
+    err_w = check_close("embedding_bag_backward", "d_weights", d_w, p_w,
+                        BAG_GRAD_TOL, of_scale=True)
+    MAX_ABS_ERR["embedding_bag_backward"] = max(
+        float((d_items - p_items).abs().max()), float((d_w - p_w).abs().max()))
+    valid = bag >= 0
+    rows = bag.clamp(min=0).long()
+    f32 = torch.zeros_like(items).index_add_(
+        0, rows.reshape(-1), (torch.where(valid, w, 0.0)[..., None]
+                              * g[:, None, :]).reshape(-1, items.shape[1]))
+    f32_err = float((f32 - p_items).abs().max()) / float(
+        p_items.abs().max())
+    hot = int(torch.bincount(bag[valid].long()).max())
+    log(f"embedding_bag_backward on DIN's train_batch: d_items within "
+        f"{err_items:.2e}, d_weights within {err_w:.2e} of their scale "
+        f"(tolerance {BAG_GRAD_TOL}); the hottest row takes {hot} entries, "
+        f"and a float32 index_add_ of the same products lies {f32_err:.2e} "
+        "of the scale from the float64 sums")
+    din.zero_grad(set_to_none=True)
+    loss, _ = recsys.din_loss(din, batch, cfg)
+    loss.backward()
+    attn = max(float(p.grad.abs().max()) for p in din.attn.parameters())
+    if not attn > 0 or not float(din.items.grad.abs().max()) > 0 \
+            or not float(d_items.abs().max()) > 0:
+        raise AssertionError("DIN on the card: no gradient through the "
+                             "pooled history")
+    log(f"DIN's loss on the card: attention MLP gradients up to {attn:.3e} "
+        "(they reach the loss only through the bag's d_weights), item "
+        f"table up to {float(din.items.grad.abs().max()):.3e}")
+
+    # the backward's row of the kernels line at DIN's train_batch
+    n_valid = int(valid.sum())
+    n_rows = int(torch.unique(bag[valid]).numel())
+    V, D = items.shape
+    bag_lib, items_l = rows, items.clone().requires_grad_(True)
+    w_l = w.clone().requires_grad_(True)
+
+    def kern():
+        return embedding_bag._run_backward(items, bag, w, g, "sum", True,
+                                           True)
+
+    # the library's backward alone: its forward runs once, outside the
+    # timed calls
+    lib_out = torch.nn.functional.embedding_bag(
+        bag_lib, items_l, mode="sum", per_sample_weights=w_l)
+
+    def library():
+        return torch.autograd.grad(lib_out, (items_l, w_l), g,
+                                   retain_graph=True)
+
+    # the distinct rows read once, the indices, weights and g read once,
+    # d_weights and d_items written once; a multiply-add per value for the
+    # dot and one for the scaled add
+    nbytes = (n_rows * D * 4 + bag.numel() * 8 + g.numel() * 4
+              + d_w.numel() * 4 + V * D * 4)
+    n_ops = 4 * n_valid * D
+    bound_ms, bound_by = bound(nbytes, n_ops)
+    ms = cuda_ms(kern, 20)
+    g_ms, why = graph_ms(kern, 20)
+    plain_ms = cuda_ms(
+        lambda: embedding_bag.embedding_bag_dense_backward_plain(
+            items, bag, w, g, "sum"), 3)
+    library_ms = cuda_ms(library, 20)
+    fwd_ms = cuda_ms(lambda: embedding_bag.embedding_bag_dense(items, bag, w),
+                     20)
+    out["row"] = {
+        "name": "embedding_bag_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:41",
+        "max_abs_err": MAX_ABS_ERR["embedding_bag_backward"], "ms": ms,
+        "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+        "shape": f"DIN train_batch {list(bag.shape)} over items [{V}, {D}]"}
+    log(f"time embedding_bag_backward at DIN's train_batch {list(bag.shape)}"
+        f" over items [{V}, {D}] ({n_valid} valid entries, {n_rows} "
+        f"distinct rows): {ms:.4f} ms back to back, "
+        + (f"{g_ms:.4f} ms in a CUDA graph" if why is None
+           else f"not measured in a CUDA graph ({why})")
+        + f", {plain_ms:.4f} ms plain, library (F.embedding_bag's "
+        f"backward) {library_ms:.4f} ms, bound {bound_ms:.6f} ms "
+        f"({bound_by}, {nbytes} B, {n_ops} ops); the forward kernel there "
+        f"{fwd_ms:.4f} ms")
+    del din, batch, items, items_l, w_l, lib_out, d_items, p_items, f32
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 5d took {time.perf_counter() - t_phase:.1f} s (comparisons "
+        f"and timing {time.perf_counter() - t_part:.1f} s)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true",
@@ -1441,6 +1864,7 @@ def main() -> int:
     from repro_torch.launch.serve import (_replay_batched,
                                           _replay_sequential, _submit_events)
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2105,12 +2529,14 @@ def main() -> int:
         "locus_topk_merge": (locus_merge, "launches"),
         "candidate_topk": (candidate_topk, "launches"),
         "embedding_bag": (embedding_bag, "launches"),
+        "embedding_bag_backward": (embedding_bag, "backward_launches"),
     }
     plain_counters = ((trie_walk, "plain_calls"), (locus, "calls"),
                       (beam, "calls"), (cached, "calls"),
                       (cached, "select_calls"),
                       (candidate_topk, "plain_calls"),
-                      (embedding_bag, "plain_calls"))
+                      (embedding_bag, "plain_calls"),
+                      (embedding_bag, "backward_plain_calls"))
 
     def reset_counts():
         for mod, attr in list(counters.values()) + list(plain_counters):
@@ -2856,6 +3282,18 @@ def main() -> int:
         f"{sum(' zz' in s for s in shown)} inserted strings shown")
     del mut
     log(f"live serving done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 5d: training ----------------------------------------------------------
+    # run here, after phase 4b: from phase 4c on the card holds ~15 GB more
+    # (37.1 GB allocated by the end of phase 5c, where danube's step, 47.0
+    # GB above the resident, ran out of memory), and traces taken after
+    # phase 5's keystroke traces have come back empty (ROADMAP §3)
+    log(f"phase 5d at {time.perf_counter() - t_start:.1f} s")
+    training = training_phase(dev, args.small, reset_counts, counts,
+                              train_main)
+    record(training["launches"], "embedding_bag", "embedding_bag_backward",
+           by_width=False)
+    log(f"training done at {time.perf_counter() - t_start:.1f} s")
 
     # -- phase 4c: the sharded index and the serving launcher ------------------
     log(f"phase 4c at {time.perf_counter() - t_start:.1f} s")
@@ -3761,6 +4199,8 @@ def main() -> int:
             f"({shape}): {ms:.4f} ms kernel, {n} phase 4 launches, bound "
             f"{bound_ms:.6f} ms ({bound_by}), loss {n * (ms - bound_ms):.3f} "
             "ms")
+    rows.append({**training["row"],
+                 "launches": launched["embedding_bag_backward"]})
     for row in rows:
         if row["name"] in by_width:
             row["by_width"] = by_width[row["name"]]

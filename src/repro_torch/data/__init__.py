@@ -1,2 +1,3 @@
 """Synthetic corpora and workloads mirroring the paper's datasets, and the
-recsys click stream and graph generators (copies of ``repro``'s)."""
+recsys click stream, the graph generators and the LM token stream (copies
+of ``repro``'s)."""

@@ -133,6 +133,24 @@ def check_tensors(name: str, device: torch.device, dtypes=DENSE_DTYPES,
             raise ValueError(f"{name}: {arg} is not contiguous")
 
 
+def wants_grad(*tensors) -> bool:
+    """Grad mode is on and one of ``tensors`` requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, hint: str, **tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` requires a
+    gradient: ``name``'s kernel has no backward, and an output without
+    one would leave its inputs' gradients silently missing."""
+    needs = [arg for arg, t in tensors.items() if wants_grad(t)]
+    if needs:
+        raise RuntimeError(
+            f"{name} has no gradient, but {', '.join(needs)} require"
+            f"{'s' if len(needs) == 1 else ''} one: call it under "
+            f"torch.no_grad() or on detached tensors; {hint}")
+
+
 def check_dtype(name: str, arg: str, t: torch.Tensor, *dtypes) -> None:
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: {arg} has dtype {t.dtype}, expected one "

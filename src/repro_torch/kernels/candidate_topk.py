@@ -16,7 +16,9 @@ Bound on the H100: the bytes of reading the candidates once,
 C·D·sizeof(element).
 
 :func:`candidate_topk` launches the kernels for CUDA tensors and answers
-CPU tensors with :func:`candidate_topk_plain`.
+CPU tensors with :func:`candidate_topk_plain`.  Neither has a gradient
+(a top-k of retrieval is in no loss): with grad mode on, an input that
+requires one raises.
 """
 
 from __future__ import annotations
@@ -143,6 +145,8 @@ def candidate_topk(query: torch.Tensor, candidates: torch.Tensor, k: int,
     ids int32[k]): the kernels on CUDA tensors, the plain version on CPU
     tensors."""
     global launches
+    _build.refuse_grad("candidate_topk", "no loss goes through a top-k",
+                       query=query, candidates=candidates)
     if query.device.type == "cpu":
         return candidate_topk_plain(query, candidates, k, block_c)
     dev = query.device

@@ -23,6 +23,25 @@
 // sums meet by shuffle at the end.  No shared memory, no __syncthreads.
 // A misaligned table or D not a multiple of the vector width takes the
 // same kernel with scalar loads.
+//
+// The backward of the dense entry (no TPU kernel: repro differentiates its
+// DIN's (a[..., None] * e_h).sum(1) with jax.grad) is a second kernel: for
+// each entry m of bag b with a valid index r, d_weights[b, m] =
+// <table[r], g[b]> and d_table[r] += w[b, m] * g[b] (each divided by the
+// bag's valid count in mean mode), the second by atomics into a zeroed
+// [V, D] float64 buffer that the wrapper rounds once to the table's type;
+// a -1 pad gets d_weights 0 and adds nothing.  float64, because a row that
+// many entries share takes them all: DIN's train batch (65,536 histories
+// of zipf draws) adds ~1 M products into its hottest row, and a float32
+// sum of that many, in an order the atomics do not fix, strays from the
+// exact one by more than the 1e-5 of its scale that chip_smoke.py holds
+// the kernel to.  Bound: the rows read once, the
+// atomics' read-modify-write of d_table's touched rows, the zeroing, g,
+// the indices, weights and d_weights.  The design: a warp per bag, as the
+// forward; lpr lanes (a power of two <= min(D, 32)) take one entry with
+// scalar loads, so a warp handles 32 / lpr entries a step, and the
+// group's dot product meets by shuffle.  Atomics on a shared row
+// serialize in L2.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -223,7 +242,96 @@ void launch(const void* table, long long n_rows, int dim, const void* idx,
           offsets, off64, n_bags, max_bag, lpr, mean, (T*)out);
 }
 
+template <class T>
+__global__ void __launch_bounds__(kWarps * 32)
+    embedding_bag_backward_kernel(const T* __restrict__ table,
+                                  long long n_rows, int dim,
+                                  const int* __restrict__ idx,
+                                  const void* __restrict__ weights,
+                                  int w_kind, const float* __restrict__ grad,
+                                  int n_bags, int max_bag, int lpr, int mean,
+                                  double* __restrict__ d_table,
+                                  float* __restrict__ d_weights) {
+  const int lane = threadIdx.x & 31;
+  const long long bag = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (bag >= n_bags) return;   // the whole warp
+  const long long start = bag * max_bag;
+  const int n = max_bag;
+  int count = 0;               // the bag's valid entries (mean divides)
+  for (int e0 = 0; e0 < n; e0 += 32) {
+    const int e = e0 + lane;
+    count += __popc(__ballot_sync(kFull, e < n && idx[start + e] >= 0));
+  }
+  const float denom = mean ? (float)(count > 1 ? count : 1) : 1.0f;
+  const int grp = lane / lpr;
+  const int sub = lane & (lpr - 1);
+  const int rpw = 32 / lpr;
+  const float* g = grad + (size_t)bag * dim;
+  for (int e0 = 0; e0 < n; e0 += 32) {
+    const int cl = n - e0 < 32 ? n - e0 : 32;
+    int r = -1;
+    float w = 0.0f;
+    if (lane < cl) {
+      const long long i = idx[start + e0 + lane];
+      r = i < 0 ? -1 : (i < n_rows ? (int)i : (int)(n_rows - 1));
+      w = weight_at<T>(weights, w_kind, start + e0 + lane);
+    }
+    for (int j0 = 0; j0 < cl; j0 += rpw) {
+      const int j = j0 + grp;  // < 32: rpw divides 32
+      const int rj = __shfl_sync(kFull, r, j);
+      const float wj = __shfl_sync(kFull, w, j);
+      float dot = 0.0f;
+      if (j < cl && rj >= 0) {
+        const T* row = table + (size_t)rj * dim;
+        double* drow =
+            d_table == nullptr ? nullptr : d_table + (size_t)rj * dim;
+        const float s = wj / denom;
+        for (int d = sub; d < dim; d += lpr) {
+          const float gd = g[d];
+          if (d_weights != nullptr) dot = fmaf(widen(row[d]), gd, dot);
+          if (drow != nullptr) atomicAdd(drow + d, (double)(s * gd));
+        }
+      }
+      for (int o = 1; o < lpr; o <<= 1) {
+        dot += __shfl_xor_sync(kFull, dot, o);
+      }
+      if (d_weights != nullptr && sub == 0 && j < cl) {
+        d_weights[start + e0 + j] = rj >= 0 ? dot / denom : 0.0f;
+      }
+    }
+  }
+}
+
+template <class T>
+void launch_backward(const void* table, long long n_rows, int dim,
+                     const void* idx, const void* weights, int w_kind,
+                     const void* grad, int n_bags, int max_bag, int lpr,
+                     int mean, void* d_table, void* d_weights,
+                     cudaStream_t stream) {
+  embedding_bag_backward_kernel<T>
+      <<<(n_bags + kWarps - 1) / kWarps, kWarps * 32, 0, stream>>>(
+          (const T*)table, n_rows, dim, (const int*)idx, weights, w_kind,
+          (const float*)grad, n_bags, max_bag, lpr, mean, (double*)d_table,
+          (float*)d_weights);
+}
+
 }  // namespace
+
+// The dense entry's backward: grad float32 [n_bags, dim], idx int32
+// [n_bags, max_bag]; d_table float64 [n_rows, dim] zeroed by the caller,
+// d_weights float32 [n_bags, max_bag]; either may be null (not wanted).
+extern "C" int embedding_bag_backward_launch(
+    const void* table, long long n_rows, int dim, int bf16, int lpr,
+    const void* idx, const void* weights, int w_kind, const void* grad,
+    int n_bags, int max_bag, int mean, void* d_table, void* d_weights,
+    void* stream) {
+  if (n_bags > 0 && max_bag > 0) {
+    auto run = bf16 ? launch_backward<unsigned short> : launch_backward<float>;
+    run(table, n_rows, dim, idx, weights, w_kind, grad, n_bags, max_bag, lpr,
+        mean, d_table, d_weights, (cudaStream_t)stream);
+  }
+  return (int)cudaGetLastError();
+}
 
 // offsets null: the dense entry (bag b is idx[b*max_bag .. +max_bag)).
 extern "C" int embedding_bag_launch(const void* table, long long n_rows,

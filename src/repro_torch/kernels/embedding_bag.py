@@ -18,6 +18,20 @@ plus the indices, weights and output.
 Each wrapper launches the kernel for CUDA tensors and answers CPU tensors
 with its plain version: :func:`embedding_bag_dense_plain`, and for the
 ragged entry :func:`densify_bags` followed by it.
+
+Gradients: the dense entry is differentiable in ``table`` and ``weights``.
+On CUDA tensors a ``torch.autograd.Function`` runs the forward launch and,
+in the backward, a second kernel of ``csrc/embedding_bag.cu``
+(``d_weights[b, m] = <table[idx[b, m]], g[b]>``, ``d_table[idx[b, m]] +=
+w[b, m] * g[b]``, each divided by the bag's count in ``"mean"``; nothing
+for a ``-1`` pad).  ``d_table`` is summed in float64 and rounded once to
+the table's type: a float32 sum over a row that ~1 M entries share
+(DIN's zipf draws), in an order the atomics do not fix, strays further
+from the exact one than ``chip_smoke.py``'s 1e-5 of its scale.
+:func:`embedding_bag_dense_backward_plain` is its plain version, summing
+the same way.  On CPU tensors autograd differentiates the plain forward.
+The ragged entry has no backward: it raises when grad mode is on and an
+input requires a gradient.
 """
 
 from __future__ import annotations
@@ -28,9 +42,11 @@ import torch
 from repro_torch.kernels import _build
 
 #: kernel launches (each call on CUDA tensors adds one, either entry) and
-#: plain-version calls
+#: plain-version calls; the same for the dense entry's backward
 launches = 0
 plain_calls = 0
+backward_launches = 0
+backward_plain_calls = 0
 
 MODES = ("sum", "mean")
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
@@ -39,6 +55,7 @@ INDEX_DTYPES = (torch.int32, torch.int64)
 NO_CUT = 2**31 - 1
 _V, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _launch = None
+_backward = None
 
 
 def embedding_bag_dense_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -55,6 +72,32 @@ def embedding_bag_dense_plain(table: torch.Tensor, idx: torch.Tensor,
     if mode == "mean":
         out = out / valid.sum(dim=1).clamp(min=1)[:, None].float()
     return out.to(table.dtype)
+
+
+def embedding_bag_dense_backward_plain(table: torch.Tensor,
+                                       idx: torch.Tensor,
+                                       weights: torch.Tensor,
+                                       grad: torch.Tensor, mode: str = "sum"):
+    """The plain backward of :func:`embedding_bag_dense_plain` for the
+    output gradient ``grad [B, D]``: (d_table [V, D] in the table's type,
+    d_weights [B, MB] in the weights' type), the products in float32,
+    d_table's sums in float64; a ``-1`` pad gets d_weights 0 and adds
+    nothing."""
+    global backward_plain_calls
+    backward_plain_calls += 1
+    V, D = table.shape
+    valid = idx >= 0
+    r = idx.clamp(0, int(V) - 1).long()
+    g = grad.float()[:, None, :]                                 # [B, 1, D]
+    denom = (valid.sum(dim=1).clamp(min=1)[:, None].float()
+             if mode == "mean" else torch.ones((), device=table.device))
+    dots = (table[r].float() * g).sum(dim=-1)                    # [B, MB]
+    d_w = torch.where(valid, dots / denom, 0.0)
+    s = torch.where(valid, weights.float() / denom, 0.0)
+    d_table = torch.zeros((V, D), dtype=torch.float64, device=table.device)
+    d_table.index_add_(0, r.reshape(-1),
+                       (s[..., None] * g).reshape(-1, D).double())
+    return d_table.to(table.dtype), d_w.to(weights.dtype)
 
 
 def densify_bags(indices, offsets, weights, max_bag: int | None,
@@ -137,6 +180,17 @@ def _fn():
     return _launch
 
 
+def _bfn():
+    global _backward
+    if _backward is None:
+        fn = _build.library("embedding_bag").embedding_bag_backward_launch
+        fn.argtypes = [_V, _LL, _I, _I, _I, _V, _V, _I, _V, _I, _I, _I, _V,
+                       _V, _V]
+        fn.restype = _I
+        _backward = fn
+    return _backward
+
+
 def _check_table(table: torch.Tensor, mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"embedding_bag: mode must be one of {MODES}, got "
@@ -182,11 +236,67 @@ def _run(table, dev, idx, weights, offsets, n_bags, max_bag, mode):
     return out
 
 
+def _run_backward(table, idx, weights, grad, mode, want_table: bool,
+                  want_weights: bool):
+    """The backward launch on the table's device: (d_table in the table's
+    type or None, d_weights in the weights' type or None)."""
+    global backward_launches
+    dev = table.device
+    V, D = table.shape
+    B, MB = idx.shape
+    if tuple(grad.shape) != (B, D):
+        raise ValueError(f"embedding_bag: the output gradient "
+                         f"{tuple(grad.shape)} must be [{B}, {D}]")
+    g = _as_f32(grad)
+    d_table = (torch.zeros((V, D), dtype=torch.float64, device=dev)
+               if want_table else None)
+    d_w = (torch.empty((B, MB), dtype=torch.float32, device=dev)
+           if want_weights else None)
+    err = _bfn()(table.data_ptr(), V, D, table.dtype is torch.bfloat16,
+                 _build.lanes_per_row(D, table.element_size(), False),
+                 idx.data_ptr(), weights.data_ptr(),
+                 1 if weights.dtype is torch.float32 else 2, g.data_ptr(),
+                 B, MB, mode == "mean",
+                 None if d_table is None else d_table.data_ptr(),
+                 None if d_w is None else d_w.data_ptr(), _build.stream(dev))
+    _build.check_launch("embedding_bag", err)
+    backward_launches += 1
+    return (None if d_table is None else d_table.to(table.dtype),
+            None if d_w is None else d_w.to(weights.dtype))
+
+
+def _as_f32(t: torch.Tensor) -> torch.Tensor:
+    t = t if t.dtype is torch.float32 else t.float()
+    return t if t.is_contiguous() else t.contiguous()
+
+
+class _DenseBag(torch.autograd.Function):
+    """The dense entry on CUDA tensors with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, table, idx, weights, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(table, idx, weights)
+        B, MB = idx.shape
+        return _run(table, table.device, idx, weights, None, B, MB, mode)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        table, idx, weights = ctx.saved_tensors
+        d_table, d_w = _run_backward(table, idx, weights, grad, ctx.mode,
+                                     ctx.needs_input_grad[0],
+                                     ctx.needs_input_grad[2])
+        return d_table, None, d_w, None
+
+
 def embedding_bag_dense(table: torch.Tensor, idx: torch.Tensor,
                         weights: torch.Tensor, mode: str = "sum"):
     """table [V, D] float32|bfloat16, idx int32[B, MB] (-1 skipped),
     weights [B, MB] -> [B, D] in the table's type: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
+    tensors (differentiable in ``table`` and ``weights`` through the
+    backward kernel), the plain version on CPU tensors (differentiated by
+    autograd)."""
     _check_table(table, mode)
     dev = table.device
     if dev.type == "cpu":
@@ -199,6 +309,8 @@ def embedding_bag_dense(table: torch.Tensor, idx: torch.Tensor,
         weights = weights.to(table.dtype)
     _check("idx", idx, dev, (torch.int32,))
     _check("weights", weights, dev, FLOAT_DTYPES)
+    if _build.wants_grad(table, weights):
+        return _DenseBag.apply(table, idx, weights, mode)
     B, MB = idx.shape
     return _run(table, dev, idx, weights, None, B, MB, mode)
 
@@ -209,8 +321,11 @@ def embedding_bag_ragged(table: torch.Tensor, indices, offsets, weights=None,
     [B+1], weights [I] or None (each 1); bag b takes at most ``max_bag``
     entries (all when None).  The kernel on a CUDA table, reading the flat
     arrays; on a CPU table the plain version, :func:`densify_bags` then
-    :func:`embedding_bag_dense_plain`."""
+    :func:`embedding_bag_dense_plain`.  It has no backward: with grad mode
+    on, a table or weights that require a gradient raise."""
     _check_table(table, mode)
+    _build.refuse_grad("embedding_bag_ragged", "embedding_bag_dense has "
+                       "a backward", table=table, weights=weights)
     dev = table.device
     if dev.type == "cpu":
         idx, w = densify_bags(indices, offsets, weights, max_bag,

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving launcher (:mod:`repro_torch.launch.serve`)."""
+"""Launchers of the port: serving (:mod:`repro_torch.launch.serve`) and
+training (:mod:`repro_torch.launch.train`)."""

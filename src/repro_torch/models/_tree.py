@@ -12,7 +12,7 @@ from torch import nn
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    # serving weights: nothing here differentiates them
+    # serving weights; a train step turns gradients on for its own model
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -65,3 +65,15 @@ def from_numpy_tree(tree) -> dict:
 
 def to_numpy_tree(m: nn.Module) -> dict:
     return tree_map(lambda t: t.detach().cpu().numpy(), to_tree(m))
+
+
+def stack_leaves(trees: list):
+    """Trees of one structure as one tree whose leaves are tuples (leaf i
+    of each tree, in order): ``repro``'s leaves stacked over layers."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_leaves([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [stack_leaves([t[i] for t in trees])
+                for i in range(len(first))]
+    return tuple(trees)

@@ -1,6 +1,6 @@
 """GIN (Graph Isomorphism Network, arXiv:1810.00826) on scatter-add message
-passing — the serving half of ``repro``'s ``models/gnn.py``, on one
-device.
+passing — ``repro``'s ``models/gnn.py`` on one device: the forwards and
+the two losses.
 
 ``repro``'s ``segment_sum`` over an edge index is ``index_add_`` here: the
 messages ``h[src]`` are gathered once, masked in place (a ``-1`` edge
@@ -9,9 +9,10 @@ contributes 0), and added into their ``dst`` rows.  On the card
 ``repro``'s to a tolerance, not bit for bit.  GIN's BatchNorm is a
 stateless LayerNorm (eps 1e-5) as in ``repro``; eps stays learnable.
 
-The mesh arms (``_aggregate``'s ``psum``, ``_aggregate_partitioned``'s
-``all_gather``; on one device ``_aggregate_partitioned`` is ``_aggregate``)
-and the losses (training) are ROADMAP.md §1 item 12.
+Autograd differentiates the losses (``index_add_``'s backward is a
+gather).  The mesh arms (``_aggregate``'s ``psum``,
+``_aggregate_partitioned``'s ``all_gather``; on one device
+``_aggregate_partitioned`` is ``_aggregate``) are ROADMAP.md §1 item 12.
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import _tree
-from repro_torch.not_ported import not_ported
 
 
 @dataclass(frozen=True)
@@ -53,6 +54,10 @@ class GIN(nn.Module):
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def param_tree(self) -> dict:
+        """The parameters in ``repro``'s tree."""
+        return _tree.to_tree(self)
 
 
 def init_gin(generator: torch.Generator, cfg: GINConfig,
@@ -134,12 +139,32 @@ def forward_batched_graphs(params: GIN, feats, src, dst, cfg: GINConfig):
     return h.reshape(G, nn_, -1).sum(dim=1) @ params.head
 
 
-def loss_full_graph(params, batch, cfg: GINConfig):
-    raise not_ported("training")
+def _nll(logits, labels):
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
 
 
-def loss_batched_graphs(params, batch, cfg: GINConfig):
-    raise not_ported("training")
+def loss_full_graph(params: GIN, batch, cfg: GINConfig):
+    """batch: feats [N,d], src/dst [E], labels [N], label_mask [N] ->
+    (masked mean nll, {"acc"})."""
+    logits = forward_full_graph(params, batch["feats"], batch["src"],
+                                batch["dst"], cfg)
+    nll = _nll(logits, batch["labels"])
+    m = batch["label_mask"]
+    n = torch.clamp_min(m.sum(), 1)
+    loss = (nll * m).sum() / n
+    acc = ((logits.argmax(-1) == batch["labels"]) * m).sum() / n
+    return loss, {"acc": acc}
+
+
+def loss_batched_graphs(params: GIN, batch, cfg: GINConfig):
+    """batch: feats [G,Nn,d], src/dst [G,Ne], labels [G] -> (mean nll,
+    {"acc"})."""
+    logits = forward_batched_graphs(params, batch["feats"], batch["src"],
+                                    batch["dst"], cfg)
+    nll = _nll(logits, batch["labels"])
+    acc = (logits.argmax(-1) == batch["labels"]).float().mean()
+    return nll.mean(), {"acc": acc}
 
 
 def params_from_numpy(tree: dict, cfg: GINConfig, device="cuda") -> GIN:

@@ -1,5 +1,5 @@
-"""Shared NN layers of the LM (the serving half of ``repro``'s
-``models/layers.py``), plain functions on tensors.
+"""Shared NN layers of the LM (``repro``'s ``models/layers.py`` on one
+device), plain functions on tensors.
 
 Each function takes its parameters as a mapping of tensors (a dict or an
 ``nn.ParameterDict``) and computes what ``repro``'s function of the same
@@ -14,10 +14,14 @@ Included:
     block only window+block keys are sliced in),
   - GQA decode against a KV cache (scalar or per-slot positions, a ring
     buffer under a window, an optional int8 cache),
-  - SwiGLU MLP and capacity-bounded token-choice MoE on one device.
+  - SwiGLU MLP and capacity-bounded token-choice MoE on one device,
+  - chunked cross-entropy (never materializes [B, S, V] logits: each
+    chunk runs under ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward instead of kept).
 
-The mesh routes (the sequence-sharded flash decode, expert-parallel MoE,
-chunked cross-entropy) belong to LM training, ROADMAP.md §1 item 12.
+Autograd differentiates every function here.  The mesh routes (the
+sequence-sharded flash decode, expert-parallel MoE) are ROADMAP.md §1
+item 12.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 #: the score given to masked keys (finite, as ``repro``'s: a fully masked
 #: row stays finite)
@@ -480,7 +485,7 @@ def _moe_local(p_local, x, *, top_k, n_experts, expert_offset, n_local,
 
 def moe_ffn(p, x, *, n_experts, top_k, capacity_factor=1.25, norm_topk=True):
     """x [B, S, D] -> (y [B, S, D], aux loss): every expert on this device
-    (the expert-parallel route over a mesh belongs to LM training)."""
+    (the expert-parallel route over a mesh is ROADMAP.md §1 item 12)."""
     B, S, D = x.shape
     y, aux = _moe_local(p, x.reshape(B * S, D), top_k=top_k,
                         n_experts=n_experts, expert_offset=0,
@@ -497,3 +502,53 @@ def moe_ffn(p, x, *, n_experts, top_k, capacity_factor=1.25, norm_topk=True):
 def embed_lookup(table, tokens):
     return F.embedding(torch.as_tensor(tokens, device=table.device).long(),
                        table)
+
+
+def xent_loss_chunked(x, w_unembed, targets, mask=None, chunk: int = 512,
+                      vocab_real: int | None = None, reduce: str = "mean"):
+    """Mean next-token cross entropy without materializing [B,S,V].
+
+    x [B,S,D], w_unembed [D,V], targets [B,S] (already shifted), mask [B,S].
+    vocab_real: when the vocab dim is padded for sharding, logits beyond it
+    are masked out of the softmax.  ``reduce="sum"`` returns (summed nll,
+    token count).  When a gradient is wanted each chunk is checkpointed,
+    as ``repro`` remats its scan body.
+    """
+    B, S, D = x.shape
+    dev = x.device
+    chunk = min(chunk, S)
+    n = (S + chunk - 1) // chunk
+    pad = n * chunk - S
+    targets = torch.as_tensor(targets, device=dev).long()
+    mask = (torch.ones((B, S), dtype=torch.bool, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).bool())
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    V = w_unembed.shape[-1]
+    cols = torch.arange(V, device=dev)
+    masked = vocab_real is not None and vocab_real < V
+
+    def body(xc, w, tc, mc):
+        logits = _as(_matmul(xc, w), torch.float32)
+        if masked:
+            logits = logits.masked_fill(cols >= vocab_real, NEG)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return ((lse - ll) * mc).sum()
+
+    remat = torch.is_grad_enabled() and (x.requires_grad
+                                         or w_unembed.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        args = (x[:, sl], w_unembed, targets[:, sl], mask[:, sl])
+        part = (checkpoint(body, *args, use_reentrant=False) if remat
+                else body(*args))
+        tot = tot + part
+        cnt = cnt + mask[:, sl].sum()
+    if reduce == "sum":
+        return tot, cnt
+    return tot / torch.clamp_min(cnt, 1)

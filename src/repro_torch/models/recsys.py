@@ -1,6 +1,6 @@
 """RecSys models: DLRM (dot interaction), DIN (target attention), SASRec
-(self-attentive sequential), MIND (multi-interest capsule routing) — the
-serving half of ``repro``'s ``models/recsys.py``, on one device.
+(self-attentive sequential), MIND (multi-interest capsule routing) —
+``repro``'s ``models/recsys.py`` on one device: serving and the losses.
 
 Each arch is an ``nn.Module`` (:class:`DLRM`, :class:`DIN`,
 :class:`SASRec`, :class:`MIND`) that keeps ``repro``'s parameter tree
@@ -13,15 +13,19 @@ answered by their plain versions on CPU ones:
 
 - DIN's pooled history, a weighted bag over ``hist``, is
   ``kernels.embedding_bag.embedding_bag_dense`` (it skips the ``-1`` pads,
-  whose weight is 0);
+  whose weight is 0); in training its backward kernel gives the item table
+  and the attention weights their gradients through the bag (a pad sends
+  none, as in ``repro``, where the pad's row ``items[V-1]`` is weighted
+  by a 0 that the mask makes);
 - :func:`retrieval_topk` scores a ``[B, D]`` user row by row with
   ``kernels.candidate_topk.candidate_topk`` (one launch a row).  MIND's
   ``[B, K, D]`` interests take a max over K, which no kernel computes (in
   ``repro`` either): one matmul, ``amax`` and a stable descending sort,
   ties to the lower id as ``lax.top_k`` gives them, on both devices.
 
-The mesh arms (``repro``'s ``shard_map`` lookups and ``all_gather``
-merge) and the losses (training) are ROADMAP.md §1 item 12.
+The losses return ``repro``'s (loss, metrics) pairs and are
+differentiated by autograd.  The mesh arms (``repro``'s ``shard_map``
+lookups and ``all_gather`` merge) are ROADMAP.md §1 item 12.
 """
 
 from __future__ import annotations
@@ -31,12 +35,12 @@ from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.candidate_topk import candidate_topk
 from repro_torch.kernels.embedding_bag import embedding_bag_dense
 from repro_torch.models import _tree
-from repro_torch.not_ported import not_ported
 
 # ---------------------------------------------------------------------------
 # lookups and retrieval (the single-device arms)
@@ -98,8 +102,20 @@ def _mlp_apply(p, x, final_act=False):
     for i in range(n):
         x = x @ p.w[i] + p.b[i]
         if i < n - 1 or final_act:
-            x = torch.relu(x)
+            x = torch.relu(x)    # gradient 0 at 0, as jax.nn.relu's
     return x
+
+
+def _bce(logit, label):
+    """``repro``'s binary cross-entropy with logits, with its gradient at
+    an exact zero logit (biases start at 0, so a row whose last hidden
+    layer is all zero after the ReLU gives one): ``jnp.maximum(x, 0)``
+    gives each side half, which ``torch.maximum`` does too, and
+    ``jnp.abs`` gives +1, which the ``where`` below does (``torch.abs``
+    gives 0)."""
+    absl = torch.where(logit >= 0, logit, -logit)
+    return torch.mean(torch.maximum(logit, torch.zeros_like(logit))
+                      - logit * label + torch.log1p(torch.exp(-absl)))
 
 
 class RecsysModel(nn.Module):
@@ -115,6 +131,10 @@ class RecsysModel(nn.Module):
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def param_tree(self) -> dict:
+        """The parameters in ``repro``'s tree."""
+        return _tree.to_tree(self)
 
 
 # ---------------------------------------------------------------------------
@@ -168,8 +188,10 @@ def dlrm_forward(params: DLRM, batch, cfg: DLRMConfig):
     return _mlp_apply(params.top, x)[:, 0]
 
 
-def dlrm_loss(params, batch, cfg: DLRMConfig):
-    raise not_ported("training")
+def dlrm_loss(params: DLRM, batch, cfg: DLRMConfig):
+    logit = dlrm_forward(params, batch, cfg)
+    loss = _bce(logit, batch["label"].float())
+    return loss, {"logit_mean": logit.mean()}
 
 
 def dlrm_user_embedding(params: DLRM, batch, cfg: DLRMConfig):
@@ -239,8 +261,9 @@ def din_forward(params: DIN, batch, cfg: DINConfig):
     return _mlp_apply(params.out, x)[:, 0]
 
 
-def din_loss(params, batch, cfg: DINConfig):
-    raise not_ported("training")
+def din_loss(params: DIN, batch, cfg: DINConfig):
+    logit = din_forward(params, batch, cfg)
+    return _bce(logit, batch["label"].float()), {}
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +339,17 @@ def sasrec_hidden(params: SASRec, hist, cfg: SASRecConfig):
     return h
 
 
-def sasrec_loss(params, batch, cfg: SASRecConfig):
-    raise not_ported("training")
+def sasrec_loss(params: SASRec, batch, cfg: SASRecConfig):
+    """batch: hist [B,T], pos [B,T], neg [B,T] (next-item targets +
+    negatives, -1 padded)."""
+    h = sasrec_hidden(params, batch["hist"], cfg)
+    e_p = embedding_lookup(params.items, batch["pos"].clamp(min=0))
+    e_n = embedding_lookup(params.items, batch["neg"].clamp(min=0))
+    m = (batch["pos"] >= 0).float()
+    lp = (h * e_p).sum(dim=-1)
+    ln_ = (h * e_n).sum(dim=-1)
+    loss = -(F.logsigmoid(lp) + F.logsigmoid(-ln_)) * m
+    return loss.sum() / torch.clamp_min(m.sum(), 1), {}
 
 
 def sasrec_user_embedding(params: SASRec, batch, cfg: SASRecConfig):
@@ -381,8 +413,19 @@ def mind_interests(params: MIND, hist, cfg: MINDConfig):
     return c
 
 
-def mind_loss(params, batch, cfg: MINDConfig):
-    raise not_ported("training")
+def mind_loss(params: MIND, batch, cfg: MINDConfig):
+    """batch: hist [B,T], target [B], neg [B, N]."""
+    caps = mind_interests(params, batch["hist"], cfg)             # [B,K,D]
+    e_t = embedding_lookup(params.items, batch["target"])         # [B,D]
+    # label-aware attention over interests
+    att = torch.softmax(cfg.pow_p * (caps @ e_t[:, :, None])[..., 0],
+                        dim=-1)                                   # [B,K]
+    u = (att[:, None, :] @ caps)[:, 0]                            # [B,D]
+    e_n = embedding_lookup(params.items, batch["neg"])            # [B,N,D]
+    lp = (u * e_t).sum(dim=-1)
+    ln_ = (e_n @ u[:, :, None])[..., 0]
+    loss = -(F.logsigmoid(lp).mean() + F.logsigmoid(-ln_).mean())
+    return loss, {}
 
 
 def mind_user_embedding(params: MIND, batch, cfg: MINDConfig):
@@ -401,18 +444,20 @@ class Arch(NamedTuple):
     forward: Callable          # the serving forward
     user: Callable             # the user embedding
     table: str                 # the candidate table's key
+    loss: Callable             # the training loss
 
 
 #: per config type, its :class:`Arch`
 ARCHS = {
     DLRMConfig: Arch(DLRM, init_dlrm, dlrm_forward, dlrm_user_embedding,
-                     "tables"),
+                     "tables", dlrm_loss),
     DINConfig: Arch(DIN, init_din, din_forward,
-                    lambda p, b, c: din_user_embedding(p, b, c)[0], "items"),
+                    lambda p, b, c: din_user_embedding(p, b, c)[0], "items",
+                    din_loss),
     SASRecConfig: Arch(SASRec, init_sasrec, sasrec_user_embedding,
-                       sasrec_user_embedding, "items"),
+                       sasrec_user_embedding, "items", sasrec_loss),
     MINDConfig: Arch(MIND, init_mind, mind_user_embedding,
-                     mind_user_embedding, "items"),
+                     mind_user_embedding, "items", mind_loss),
 }
 
 

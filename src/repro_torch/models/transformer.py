@@ -1,5 +1,6 @@
-"""Decoder-only transformer: dense / GQA / SWA / MoE variants (the serving
-half of ``repro``'s ``models/transformer.py``).
+"""Decoder-only transformer: dense / GQA / SWA / MoE variants
+(``repro``'s ``models/transformer.py`` on one device: training and
+serving).
 
 Covers all five LM architectures from one config dataclass:
 granite-moe-1b-a400m (MoE 32e top-8), arctic-480b (MoE 128e top-2 + dense
@@ -12,6 +13,14 @@ dtypes follow ``repro``'s exactly: ``forward`` and ``prefill`` cast the
 residual stream to ``activation_dtype`` at entry and after each layer,
 ``decode_step`` never does.  :func:`params_from_numpy` builds the module
 from ``repro``'s ``init_lm`` tree, so both packages compute one function.
+
+Training: :func:`loss_fn` is ``repro``'s (chunked cross-entropy plus
+``aux_loss_weight`` times the MoE's load-balance loss), differentiated by
+autograd; with ``cfg.remat`` each layer of :func:`forward` runs under
+``torch.utils.checkpoint`` in grad mode (``repro`` remats its scan body),
+so a layer's activations are recomputed in the backward.  The weights are
+created as serving weights (no gradient); ``configs.cells``'s train step
+turns gradients on for the model it trains.
 """
 
 from __future__ import annotations
@@ -21,10 +30,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import _tree
 from repro_torch.models import layers as L
-from repro_torch.not_ported import not_ported
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int8": torch.int8}
@@ -138,6 +147,13 @@ class TransformerLM(nn.Module):
 
     def n_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def param_tree(self) -> dict:
+        """The parameters in ``repro``'s tree: each ``layers`` leaf a tuple
+        of the layers' tensors (``repro`` stacks it ``[L, ...]``)."""
+        return {"embed": self.embed, "final_ln": self.final_ln,
+                "unembed": self.unembed,
+                "layers": _tree.stack_leaves([b.tree() for b in self.blocks])}
 
 
 def _cast(tree, dtype):
@@ -253,23 +269,43 @@ def _layer_fwd(cfg: TransformerConfig, x, blk: Block, positions):
     return x.to(torch_dtype(cfg.activation_dtype)), aux, kv
 
 
+def _layer_train(cfg: TransformerConfig, blk: Block, positions, x):
+    x, aux, _ = _layer_fwd(cfg, x, blk, positions)
+    return x, aux
+
+
 def forward(params: TransformerLM, tokens, cfg: TransformerConfig):
-    """tokens [B, S] -> final hidden [B, S, D] (+ mean aux loss)."""
+    """tokens [B, S] -> final hidden [B, S, D] (+ mean aux loss).  With
+    ``cfg.remat``, in grad mode on weights that want a gradient, each
+    layer is checkpointed."""
     B, S = tokens.shape
     x = L.embed_lookup(params.embed, tokens)
     x = x.to(torch_dtype(cfg.activation_dtype))
     positions = torch.arange(S, device=x.device)[None, :]
+    # serving (no gradient wanted) runs as before
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
     auxes = []
     for blk in params.blocks:
-        x, aux, _ = _layer_fwd(cfg, x, blk, positions)
+        if remat:
+            x, aux = checkpoint(_layer_train, cfg, blk, positions, x,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer_train(cfg, blk, positions, x)
         auxes.append(aux)
     x = L.rms_norm(x, params.final_ln, cfg.norm_eps)
     return x, torch.stack(auxes).mean()
 
 
-def loss_fn(params, batch, cfg: TransformerConfig):
-    """The training loss belongs to training (ROADMAP.md §1 item 12)."""
-    raise not_ported("training")
+def loss_fn(params: TransformerLM, batch, cfg: TransformerConfig):
+    """batch: dict(tokens [B,S], targets [B,S], mask [B,S]) -> (loss,
+    {"nll", "aux"})."""
+    x, aux = forward(params, batch["tokens"], cfg)
+    nll = L.xent_loss_chunked(x, params.unembed, batch["targets"],
+                              batch.get("mask"), chunk=cfg.loss_chunk,
+                              vocab_real=cfg.vocab)
+    loss = nll + cfg.aux_loss_weight * aux
+    return loss, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ ports it; none runs quietly on a plain version.
 from __future__ import annotations
 
 _ITEMS = {
-    "training": (12, "training (the LM's, recsys and GNN losses, the "
-                     "optimizers and the mesh routes)"),
+    "mesh": (12, "the mesh routes (sharded gradients and optimizer state, "
+                 "elastic re-sharding, a multi-process training launch)"),
 }
 
 

@@ -1,10 +1,13 @@
-"""Optimizer settings the arch specs carry.
+"""Optimizers (``repro``'s ``optim``): AdamW, Adafactor and SGD as plain
+functions on trees of tensors, the warmup + cosine schedule, global-norm
+clipping, and the state carried to and from ``repro``'s arrays."""
 
-Only :class:`OptimizerConfig` is ported: the LM specs name one.  The
-optimizers themselves (``init_optimizer``, ``apply_updates``, ``lr_at``)
-belong to LM training, ROADMAP.md §1 item 12.
-"""
+from repro_torch.optim.optimizers import (OptimizerConfig, apply_updates,
+                                          clip_by_global_norm, global_norm,
+                                          grad_tree, init_optimizer, lr_at,
+                                          opt_state_from_numpy,
+                                          opt_state_to_numpy)
 
-from repro_torch.optim.optimizers import OptimizerConfig
-
-__all__ = ["OptimizerConfig"]
+__all__ = ["OptimizerConfig", "apply_updates", "clip_by_global_norm",
+           "global_norm", "grad_tree", "init_optimizer", "lr_at",
+           "opt_state_from_numpy", "opt_state_to_numpy"]

@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 do ``chip_smoke.py`` and the port's examples), runs on the CUDA device
 unless told otherwise, and raises on every option outside the ported
-slices (training: the LM's, recsys and GNN losses)."""
+slices (the mesh routes of training: sharded gradients, a multi-process
+launch, elastic re-sharding) and on a gradient that a kernel without a
+backward cannot give."""
 
 import os
 import pkgutil
@@ -14,9 +16,14 @@ import torch
 
 import repro_torch as rt
 from repro_torch.core.engine.substrate import resolve_substrate
-from repro_torch.core.trie_build import make_rules
-from repro_torch.models import gnn, recsys
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.cells import make_train_step
+from repro_torch.distributed import TrainSupervisor
+from repro_torch.kernels import candidate_topk, embedding_bag
+from repro_torch.launch import train
+from repro_torch.models import gnn
 from repro_torch.models.transformer import TransformerConfig, loss_fn
+from repro_torch.optim import OptimizerConfig
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -25,7 +32,8 @@ PAPER = (["andrew pavlo", "andrew parker", "william smith"], [50, 40, 20],
 FORBIDDEN = ("jax", "jaxlib", "repro")
 EXAMPLES = ("examples/torch_quickstart.py",
             "examples/torch_serve_autocomplete.py",
-            "examples/torch_autocomplete_rerank.py")
+            "examples/torch_autocomplete_rerank.py",
+            "examples/torch_train_lm.py")
 
 
 def _run(args, cwd, with_src=True):
@@ -114,21 +122,62 @@ def test_auto_substrate_follows_the_device():
         resolve_substrate("jnp", "cpu")
 
 
-SURFACES = [
-    ("lm_training", lambda i: loss_fn(None, {}, TransformerConfig())),
-    ("recsys_training",
-     lambda i: recsys.sasrec_loss(None, {}, recsys.SASRecConfig())),
-    ("gnn_training",
-     lambda i: gnn.loss_batched_graphs(None, {}, gnn.GINConfig())),
+def _gin_state():
+    model = gnn.init_gin(torch.Generator().manual_seed(0), gnn.GINConfig(
+        n_layers=1, d_feat=4, d_hidden=4, n_classes=2), device="cpu")
+    return {"params": model}
+
+
+def _world_of_two(tmp, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    train.main(["--arch", "din", "--steps", "1", "--device", "cpu",
+                "--ckpt-dir", str(tmp)])
+
+
+SURFACES = [   # (id, call(tmp_path, monkeypatch), error, message)
+    # the LM's train step with gradients constrained to a mesh sharding
+    ("lm_training", lambda t, m: make_train_step(
+        loss_fn, TransformerConfig(), OptimizerConfig(),
+        param_axes={"embed": ("vocab", "fsdp")}),
+     NotImplementedError, "ROADMAP"),
+    # a recsys arch's launch over a torch.distributed world of two
+    ("recsys_training", _world_of_two, NotImplementedError, "ROADMAP"),
+    # GIN's supervisor restoring onto a mesh sharding
+    ("gnn_training", lambda t, m: TrainSupervisor(str(t)).run(
+        init_state=_gin_state(), step_fn=lambda s, i: s, n_steps=1,
+        state_shardings={}), NotImplementedError, "ROADMAP"),
+    ("checkpoint_shardings", lambda t, m: CheckpointManager(str(t)).restore(
+        _gin_state(), shardings={}), NotImplementedError, "ROADMAP"),
+    ("ragged_bag_gradient", lambda t, m: embedding_bag.embedding_bag_ragged(
+        torch.ones(4, 2, requires_grad=True), torch.tensor([0, 3]),
+        torch.tensor([0, 2])), RuntimeError, "no gradient"),
+    ("candidate_topk_gradient", lambda t, m: candidate_topk.candidate_topk(
+        torch.ones(2, requires_grad=True), torch.ones(5, 2), 3),
+     RuntimeError, "no gradient"),
 ]
 
 
-@pytest.mark.parametrize("name,call", SURFACES, ids=[s[0] for s in SURFACES])
-def test_out_of_slice_surfaces_raise(name, call):
-    idx = rt.build_index(PAPER[0], PAPER[1], make_rules(PAPER[2]),
-                         kind="tt", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(idx)
+@pytest.mark.parametrize("name,call,error,match", SURFACES,
+                         ids=[s[0] for s in SURFACES])
+def test_out_of_slice_surfaces_raise(name, call, error, match, tmp_path,
+                                     monkeypatch):
+    with pytest.raises(error, match=match):
+        call(tmp_path, monkeypatch)
+
+
+def test_gradient_refusals_only_in_grad_mode():
+    """Without grad mode (or on inputs that need no gradient) the two
+    kernels without a backward answer as before."""
+    t = torch.ones(4, 2, requires_grad=True)
+    with torch.no_grad():
+        out = embedding_bag.embedding_bag_ragged(t, torch.tensor([0, 3]),
+                                                 torch.tensor([0, 2]))
+        assert out.tolist() == [[2.0, 2.0]]
+        ids = candidate_topk.candidate_topk(
+            torch.ones(2, requires_grad=True), torch.ones(5, 2), 3)[1]
+        assert ids.tolist() == [0, 1, 2]
+    assert candidate_topk.candidate_topk(torch.ones(2), torch.ones(5, 2),
+                                         3)[1].tolist() == [0, 1, 2]
 
 
 def test_no_fallback_between_kernel_and_plain_version():
@@ -145,7 +194,10 @@ def test_no_fallback_between_kernel_and_plain_version():
                 "api/index.py", "api/compile_cache.py", "api/session.py",
                 "serving/scheduler.py", "core/distributed.py",
                 "core/__init__.py", "core/api.py", "core/oracle.py",
-                "launch/serve.py", "models/recsys.py", "models/gnn.py"):
+                "launch/serve.py", "models/recsys.py", "models/gnn.py",
+                "models/transformer.py", "models/layers.py",
+                "optim/optimizers.py", "configs/cells.py",
+                "launch/train.py"):
         text = (ROOT / "src" / "repro_torch" / mod).read_text()
         assert "try:" not in text, mod
     for path in EXAMPLES:

@@ -179,8 +179,3 @@ def test_init_lm_and_numpy_roundtrip():
     c = ttf.params_from_numpy(tree, cfg, device="cpu").state_dict()
     assert all(torch.equal(sa[k], c[k]) for k in sa)
     assert a.n_params() == sum(x.size for x in jax.tree.leaves(tree))
-
-
-def test_loss_fn_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 12"):
-        ttf.loss_fn(None, {}, ttf.TransformerConfig())

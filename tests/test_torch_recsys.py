@@ -12,6 +12,7 @@ two float32 sums may swap near-tied ids).  The click stream equals
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,11 @@ from repro_torch.configs import RECSYS_ARCHS, all_archs, get_arch
 from repro_torch.data import recsys as tdata
 from repro_torch.kernels import candidate_topk, embedding_bag
 from repro_torch.models import recsys as trec
+from repro_torch.optim import grad_tree
+from repro_torch.optim.optimizers import leaves
+from torch_fast_jit import FAST
 from torch_threads import one_torch_thread  # noqa: F401
+from torch_train_cases import Case, as_np, jbatch, leaf_close, tbatch
 
 TOL = 1e-5
 BATCH, K = 6, 10
@@ -249,10 +254,48 @@ def test_padded_ids_read_the_last_row():
                           np.asarray(want))
 
 
+def test_bce_gradient_at_exact_ties():
+    """``repro``'s ``_bce`` at logits of exactly 0 (biases start at 0, so a
+    row whose last hidden layer is all zero after the ReLU gives one) and
+    the ReLU at exactly 0: the port's gradients equal ``jax.grad``'s."""
+    logit = np.array([0.0, 0.0, 1.5, -2.0], np.float32)
+    label = np.array([1.0, 0.0, 1.0, 0.0], np.float32)
+    want = jax.grad(lambda x: jrec._bce(x, jnp.asarray(label)))(
+        jnp.asarray(logit))
+    x = torch.from_numpy(logit).requires_grad_(True)
+    trec._bce(x, torch.from_numpy(label)).backward()
+    got, want = x.grad.numpy(), np.asarray(want)
+    assert np.array_equal(got[:2], want[:2])       # the ties, exactly
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    h = torch.zeros(3, requires_grad=True)
+    torch.relu(h).sum().backward()
+    assert np.array_equal(h.grad.numpy(), np.asarray(jax.grad(
+        lambda v: jax.nn.relu(v).sum())(jnp.zeros(3))))
+
+
 @pytest.mark.parametrize("arch", RECSYS_ARCHS)
 def test_losses_are_training(arch):
-    cfg = get_arch(arch).make_smoke_config()
-    loss = {"dlrm-rm2": trec.dlrm_loss, "din": trec.din_loss,
-            "sasrec": trec.sasrec_loss, "mind": trec.mind_loss}[arch]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 12"):
-        loss(None, {}, cfg)
+    """The arch's loss, its metrics and every gradient leaf against
+    ``jax.value_and_grad`` of ``repro``'s on a launcher batch (DIN's with
+    ``-1`` pads and its last item row used for real): the loss within
+    1e-6 relative, each leaf within 1e-5 of its largest magnitude.  The
+    DIN pads send no gradient to that row or to the attention MLP, in
+    both packages, and the history's bag gives the item table its
+    gradient."""
+    c = Case(arch)
+    b = c.batch()
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
+        partial(c.jloss, cfg=c.jcfg), has_aux=True),
+        compiler_options=FAST)(c.jparams(), jbatch(b))
+    model = c.model().requires_grad_(True)
+    tl, tm = c.tloss(model, tbatch(b), c.tcfg)
+    tl.backward()
+    assert abs(float(tl.detach()) - float(jl)) <= 1e-6 * abs(float(jl))
+    assert tm.keys() == jm.keys()
+    for k in tm:
+        leaf_close(tm[k], jm[k], 1e-6)
+    got, want = leaves(grad_tree(model)), jax.tree.leaves(jg)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        leaf_close(g, w, 1e-5)
+    assert all(float(np.abs(as_np(g)).max()) > 0 for g in got)
